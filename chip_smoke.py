@@ -9,17 +9,20 @@ Phases, one line each with its ``elapsed_s``:
      build of the kernel library (``csrc/*.cu``) with its seconds;
   2. kernels — K1, the PlaneDia SpMV, against its plain PyTorch version at
      every shape the BLOCK glob_leve=2 solve gives it, plus a tail-identity
-     and a zero-tail case, on inputs made from ``--seed``; per shape the
-     kernel's time, its bound, the plain version's time and, as a yardstick
-     only, the time of ``torch.sparse.mm`` on a CSR tensor of the same
-     matrix, all three timed alike (CUDA-graph replays, table warm in L2);
+     and a zero-tail case, and at the glob_leve=4 (8.8M DOF) shapes of the
+     finest level and A_top, on inputs made from ``--seed``; per shape the
+     kernel's time warm (CUDA-graph replays, inputs warm in L2 from the
+     call before) and cold (a graph that cycles through copies of the
+     inputs larger than twice the L2), its bound, the plain version's time
+     and, as a yardstick only, the time of ``torch.sparse.mm`` on a CSR
+     tensor of the same matrix, the last two warm;
   3. small   — the small BLOCK (divi 2, glob_leve 1, one core per block) with
      the PlaneDia path forced, solved on the CPU (plain versions) and on the
      card (K1): the same ADMM iteration count and u within 1e-6 max|u|;
   4. slice   — the BLOCK menu-1 problem at glob_leve=2 (180,684 DOF, 30
      bodies, MULTISCALE_1 at doleMcsc=1) built by the port's own host code,
      K1 held against its plain version on every PlaneDia operator of the
-     problem, then solved on the card through ``contact_analysis``: it must
+     problem and timed there warm and cold, then solved on the card through ``contact_analysis``: it must
      converge in 19-21 ADMM iterations through K1 and pass the patch test
      (u_z = p z / E).
 
@@ -31,6 +34,7 @@ with a non-zero exit.  The script imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -45,6 +49,11 @@ T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 REPLACES = "ddpca_admm_tpu/sparse/pallas_dia.py:117"
+# cold timing: the copies of a case's inputs pass twice the 50 MB L2
+COLD_BYTES = 2 * 50 * 2 ** 20
+COLD_COPIES_MAX = 512
+# a table above this is timed with fewer calls in the plain version
+BIG_TABLE_BYTES = 100 * 2 ** 20
 # the BLOCK size of the slice phase: 180,684 DOF (the only size whose
 # iteration gate below holds; the JAX package and the C++ reference take 20)
 GLOB_LEVE = 2
@@ -77,18 +86,19 @@ def smi_line() -> str:
 
 # ---------------------------------------------------------------- timing
 
-def graph_ms(torch, fn, inner: int = 20, reps: int = 5) -> float:
-    """Device time of one fn() call: a CUDA graph of ``inner`` calls,
-    replayed ``reps`` times between CUDA events (no host overhead)."""
+def graph_ms(torch, calls, reps: int = 5) -> float:
+    """Device time of one call: a CUDA graph of the callables ``calls``,
+    in order, replayed ``reps`` times between CUDA events (no host
+    overhead), over the number of calls."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in calls:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(inner):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -99,7 +109,32 @@ def graph_ms(torch, fn, inner: int = 20, reps: int = 5) -> float:
         graph.replay()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / (reps * inner)
+    return e0.elapsed_time(e1) / (reps * len(calls))
+
+
+def warm_ms(torch, fn, inner: int = 20, reps: int = 5) -> float:
+    """One fn() call with its inputs warm in L2 from the call before."""
+    return graph_ms(torch, [fn] * inner, reps)
+
+
+def cold_ms(torch, mv, pd, x, reps: int = 3) -> float:
+    """One mv(pd, x) call with its table and x out of L2: the graph cycles
+    through k copies of (vals, x) that together pass COLD_BYTES, so the
+    calls since a copy's last turn have evicted it (k >= 2, the plan is
+    shared)."""
+    per = (pd.vals.numel() * pd.vals.element_size()
+           + 2 * x.numel() * x.element_size())
+    k = min(COLD_COPIES_MAX, max(2, -(-COLD_BYTES // per)))
+    copies = []
+    for _ in range(k):
+        c = copy.copy(pd)
+        c.vals = pd.vals.clone()
+        copies.append((c, x.clone()))
+    calls = [lambda c=c, xc=xc: mv(c, xc) for c, xc in copies]
+    ms = graph_ms(torch, calls, reps=max(reps, -(-20 // k)))
+    del copies, calls
+    torch.cuda.empty_cache()
+    return ms
 
 
 # ------------------------------------------------------------- K1 cases
@@ -123,73 +158,119 @@ def stencil_offsets(grid, kind: str) -> list[int]:
     return sorted(offs)
 
 
-# (label, dtype, classes C, grid (nz, ny, nx), kind, bodies B, n_rows, tail)
+def padded_rows(grid) -> int:
+    """n_rows of a level whose largest body has this node grid: the port's
+    padding rule (solvers/mg.py::build_hierarchy rounds up to 128 rows)."""
+    nz, ny, nx = grid
+    return -(-3 * nz * ny * nx // 128) * 128
+
+
+G2, G4 = (13, 13, 13), (49, 49, 49)   # core-body node grids, glob_leve 2, 4
+N2, N4 = padded_rows(G2), padded_rows(G4)   # 6656, 353024
+
+# (label, dtype, classes C, grid (nz, ny, nx), kind, bodies B, n_rows, tail,
+# class layout: "uniform" draws kz uniformly over the C classes, "half"
+# gives class 0 half of the planes and draws the rest uniformly).  The
+# glob_leve=2 class counts are those of the real operators (72 for A, 14
+# for P, 19 for Pt, 2 for the slabs' stencils); the glob_leve=4 layouts are
+# synthetic (the real ones need the 44-minute host build).
 K1_CASES = [
-    ("A_top core f64", "float64", 72, (13, 13, 13), "stiffness", 24, 6656,
-     True),
-    ("A finest core f32", "float32", 72, (13, 13, 13), "stiffness", 24, 6656,
-     True),
-    ("P/Pt core level 2", "float32", 14, (13, 13, 13), "transfer", 24, 6656,
-     False),
-    ("P/Pt core level 1", "float32", 14, (7, 7, 7), "transfer", 24, 1152,
-     False),
+    ("A_top core f64", "float64", 72, G2, "stiffness", 24, N2, True,
+     "uniform"),
+    ("A finest core f32", "float32", 72, G2, "stiffness", 24, N2, True,
+     "uniform"),
+    ("P core level 2", "float32", 14, G2, "transfer", 24, N2, False,
+     "uniform"),
+    ("Pt core level 2", "float32", 19, G2, "transfer", 24, N2, False,
+     "uniform"),
+    ("P core level 1", "float32", 14, (7, 7, 7), "transfer", 24, 1152, False,
+     "uniform"),
+    ("Pt core level 1", "float32", 19, (7, 7, 7), "transfer", 24, 1152,
+     False, "uniform"),
     ("P/Pt slab level 2", "float32", 2, (2, 25, 25), "slab_transfer", 6,
-     6656, False),
+     N2, False, "uniform"),
     ("P/Pt slab level 1", "float32", 2, (2, 13, 13), "slab_transfer", 6,
-     1152, False),
-    ("zero tail, A_top shape", "float64", 72, (13, 13, 13), "stiffness", 24,
-     6656, False),
-    ("identity tail, transfer shape", "float32", 14, (13, 13, 13),
-     "transfer", 24, 6656, True),
+     1152, False, "uniform"),
+    ("zero tail, A_top shape", "float64", 72, G2, "stiffness", 24, N2, False,
+     "uniform"),
+    ("identity tail, transfer shape", "float32", 14, G2, "transfer", 24, N2,
+     True, "uniform"),
+    ("A_top core f64, glob_leve=4", "float64", 72, G4, "stiffness", 24, N4,
+     True, "uniform"),
+    ("A finest core f32, glob_leve=4", "float32", 72, G4, "stiffness", 24,
+     N4, True, "uniform"),
+    ("Pt core finest f32, glob_leve=4", "float32", 19, G4, "transfer", 24,
+     N4, False, "uniform"),
+    ("A finest f32, half the planes in one class, glob_leve=4", "float32",
+     72, G4, "stiffness", 24, N4, True, "half"),
 ]
 
 
-def make_plane_dia(torch, rng, dtype, C, grid, kind, B, n, tail):
-    import numpy as np
-
+def make_plane_dia(torch, seed, dtype, C, grid, kind, B, n, tail,
+                   layout="uniform"):
+    """A PlaneDia with random values on the card, and an x for it, made
+    from ``seed`` on the card (the glob_leve=4 tables hold 51M values)."""
     from ddpca_admm_tpu_torch.sparse.dia import PlaneDia
 
     nz, ny, nx = grid
     P = 3 * ny * nx
     offs = stencil_offsets(grid, kind)
-    vals = rng.standard_normal((C, len(offs), P)).astype(dtype)
-    kz = rng.integers(0, C, (B, nz)).astype(np.int32)
-    x = rng.standard_normal((B, n)).astype(dtype)
     dev = torch.device("cuda")
-    pd = PlaneDia(torch.from_numpy(vals).to(dev), torch.from_numpy(kz).to(dev),
-                  tuple(offs), n, P, tail_identity=tail)
-    return pd, torch.from_numpy(x).to(dev)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vals = torch.randn((C, len(offs), P), generator=gen, device=dev,
+                       dtype=dt)
+    kz = torch.randint(0, C, (B, nz), generator=gen, device=dev)
+    if layout == "half":
+        half = torch.randperm(B * nz, generator=gen, device=dev)
+        kz.view(-1)[half[: B * nz // 2]] = 0
+    x = torch.randn((B, n), generator=gen, device=dev, dtype=dt)
+    pd = PlaneDia(vals, kz.to(torch.int32), tuple(offs), n, P,
+                  tail_identity=tail)
+    return pd, x
 
 
 def csr_of(torch, pd):
     """The block-diagonal (B*n, B*n) CSR matrix of a PlaneDia, built on the
-    card (the yardstick for torch.sparse.mm)."""
+    card with int32 indices and no COO coalesce (the yardstick for
+    torch.sparse.mm), or None when its nonzeros pass int32."""
     C, D, P = pd.vals.shape
     B, nz = pd.kz.shape
     n, na = pd.n_rows, nz * P
     dev = pd.vals.device
     i = torch.arange(na, device=dev)
-    b = torch.arange(B, device=dev)
-    cls = pd.kz[:, i // P].long()                        # (B, na)
-    rows, cols, vals = [], [], []
-    for d, off in enumerate(pd.offsets):
-        j = i + off
-        ok = (j >= 0) & (j < na)
-        v = pd.vals[cls[:, ok], d, (i % P)[ok]]          # (B, n_ok)
-        rows.append((b[:, None] * n + i[ok][None, :]).reshape(-1))
-        cols.append((b[:, None] * n + j[ok][None, :]).reshape(-1))
-        vals.append(v.reshape(-1))
-    if pd.tail_identity and na < n:
-        t = torch.arange(na, n, device=dev)
-        diag = (b[:, None] * n + t[None, :]).reshape(-1)
-        rows.append(diag)
-        cols.append(diag)
-        vals.append(torch.ones(diag.numel(), dtype=pd.dtype, device=dev))
-    coo = torch.sparse_coo_tensor(
-        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
-        (B * n, B * n),
-    ).coalesce()
-    return coo.to_sparse_csr()
+    off = torch.tensor(pd.offsets, device=dev)
+    j = i[:, None] + off[None, :]                        # (na, D), sorted
+    ok = (j >= 0) & (j < na)
+    per_row = ok.sum(1)
+    tail = n - na if pd.tail_identity else 0
+    nnz_b = int(per_row.sum()) + tail
+    if B * nnz_b >= 2 ** 31:
+        return None
+    counts = torch.cat([per_row, torch.ones(tail, dtype=per_row.dtype,
+                                            device=dev),
+                        torch.zeros(n - na - tail, dtype=per_row.dtype,
+                                    device=dev)])
+    crow = torch.zeros(B * n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(counts.repeat(B), 0)
+    vals = torch.empty(B * nnz_b, dtype=pd.dtype, device=dev)
+    cols = torch.empty(B * nnz_b, dtype=torch.int32, device=dev)
+    j_ok = j[ok]
+    for b in range(B):
+        slab = pd.vals.index_select(0, pd.kz[b].long())   # (nz, D, P)
+        v = slab.permute(0, 2, 1).reshape(na, D)[ok]
+        s0 = b * nnz_b
+        s1 = s0 + nnz_b - tail
+        vals[s0:s1] = v
+        cols[s0:s1] = (j_ok + b * n).to(torch.int32)
+        if tail:
+            vals[s1:s0 + nnz_b] = 1
+            cols[s1:s0 + nnz_b] = torch.arange(
+                b * n + na, (b + 1) * n, device=dev, dtype=torch.int32)
+        del slab, v
+    return torch.sparse_csr_tensor(crow.to(torch.int32), cols, vals,
+                                   (B * n, B * n), check_invariants=False)
 
 
 def k1_bound(pd, x):
@@ -199,8 +280,9 @@ def k1_bound(pd, x):
     C, D, P = pd.vals.shape
     B, nz = pd.kz.shape
     item = pd.vals.element_size()
-    nbytes = (pd.vals.numel() * item + pd.kz.numel() * 4 + pd.off.numel() * 8
-              + 2 * x.numel() * item)
+    plan = pd.plan_pairs.numel() + pd.plan_items.numel() \
+        + pd.plan_groups.numel()
+    nbytes = pd.vals.numel() * item + plan * 4 + 2 * x.numel() * item
     ops = 2.0 * D * B * nz * P
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[str(pd.dtype).replace("torch.", "")]
@@ -221,32 +303,62 @@ def run_k1_case(torch, K, pd, x, label):
     return err, scale, rel
 
 
-def phase_kernels(torch, np, args):
+def time_k1(torch, K, pd, x, label) -> dict:
+    """K1 against its plain version, then its warm and cold times beside
+    its bound (the share of the bound is taken from the cold time)."""
+    err, scale, rel = run_k1_case(torch, K, pd, x, label)
+    ms_warm = warm_ms(torch, lambda: K.plane_dia_mv(pd, x))
+    ms_cold = cold_ms(torch, K.plane_dia_mv, pd, x)
+    bound_ms, bound_by, nbytes, ops = k1_bound(pd, x)
+    return dict(dtype=str(pd.dtype).replace("torch.", ""),
+                vals=list(pd.vals.shape), kz=list(pd.kz.shape),
+                n_rows=pd.n_rows, tail_identity=pd.tail_identity,
+                work_items=pd.plan_items.shape[0],
+                offset_groups=pd.plan_groups.shape[0], max_abs_err=err,
+                max_abs_y=scale, tol_rel=rel, ms=ms_warm, ms_warm=ms_warm,
+                ms_cold=ms_cold, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share_cold=bound_ms / ms_cold, bytes=nbytes, flops=ops)
+
+
+def library_case(torch, K, pd, x, label, scale, rel):
+    """torch.sparse.mm on the CSR of the same matrix, checked and timed
+    warm as K1 is; None where the CSR cannot be built (int32 nonzeros)."""
+    A = csr_of(torch, pd)
+    if A is None:
+        return None, "CSR nonzeros pass int32"
+    xcol = x.reshape(-1, 1)
+    y_lib = torch.sparse.mm(A, xcol).reshape(x.shape)
+    lib_err = float((y_lib - K.plane_dia_mv_plain(pd, x)).abs().max())
+    check(lib_err <= rel * scale,
+          f"K1 {label}: torch.sparse.mm disagrees ({lib_err})")
+    del y_lib
+    ms = warm_ms(torch, lambda: torch.sparse.mm(A, xcol))
+    del A
+    torch.cuda.empty_cache()
+    return ms, None
+
+
+def phase_kernels(torch, args):
     from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
 
-    rng = np.random.default_rng(args.seed)
     rows = []
-    for (label, dtype, C, grid, kind, B, n, tail) in K1_CASES:
-        pd, x = make_plane_dia(torch, rng, dtype, C, grid, kind, B, n, tail)
-        err, scale, rel = run_k1_case(torch, K, pd, x, label)
-        ms = graph_ms(torch, lambda: K.plane_dia_mv(pd, x))
-        plain_ms = graph_ms(torch, lambda: K.plane_dia_mv_plain(pd, x))
-        A = csr_of(torch, pd)
-        xcol = x.reshape(-1, 1)
-        y_lib = torch.sparse.mm(A, xcol).reshape(x.shape)
-        lib_err = float((y_lib - K.plane_dia_mv_plain(pd, x)).abs().max())
-        check(lib_err <= rel * scale,
-              f"K1 {label}: torch.sparse.mm disagrees ({lib_err})")
-        library_ms = graph_ms(torch, lambda: torch.sparse.mm(A, xcol))
-        bound_ms, bound_by, nbytes, ops = k1_bound(pd, x)
-        row = dict(case=label, dtype=dtype, vals=list(pd.vals.shape),
-                   kz=list(pd.kz.shape), n_rows=n, tail_identity=tail,
-                   max_abs_err=err, max_abs_y=scale, tol_rel=rel, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=ops)
+    for i, (label, dtype, C, grid, kind, B, n, tail, layout) in \
+            enumerate(K1_CASES):
+        pd, x = make_plane_dia(torch, args.seed + i, dtype, C, grid, kind, B,
+                               n, tail, layout)
+        row = dict(case=label, layout=layout, **time_k1(torch, K, pd, x,
+                                                        label))
+        big = row["bytes"] > BIG_TABLE_BYTES
+        row["plain_ms"] = warm_ms(torch, lambda: K.plane_dia_mv_plain(pd, x),
+                                  inner=4 if big else 20,
+                                  reps=2 if big else 5)
+        torch.cuda.empty_cache()
+        row["library_ms"], why = library_case(
+            torch, K, pd, x, label, row["max_abs_y"], row["tol_rel"])
+        if why:
+            row["library_not_measured"] = why
         rows.append(row)
-        del A, pd, x
+        del pd, x
         torch.cuda.empty_cache()
     emit("kernels", cases=rows)
     return rows
@@ -357,18 +469,15 @@ def phase_slice(torch, np, args):
     setup_s = time.perf_counter() - t
     n_dof = int(sum(s.n_dof for s in meta.systems))
 
-    # K1 against its plain version on every PlaneDia the problem holds
-    rng = np.random.default_rng(args.seed + 1)
+    # K1 against its plain version on every PlaneDia the problem holds, and
+    # its warm and cold times there (the real class layouts)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + len(K1_CASES))
     ops = []
     for label, pd in plane_dias(prob):
-        x = torch.from_numpy(
-            rng.standard_normal((pd.kz.shape[0], pd.n_rows))
-        ).to(device="cuda", dtype=pd.dtype)
-        err, scale, _ = run_k1_case(torch, K, pd, x, label)
-        ops.append(dict(op=label, dtype=str(pd.dtype).replace("torch.", ""),
-                        vals=list(pd.vals.shape), kz=list(pd.kz.shape),
-                        tail_identity=pd.tail_identity, max_abs_err=err,
-                        max_abs_y=scale))
+        x = torch.randn((pd.kz.shape[0], pd.n_rows), generator=gen,
+                        device="cuda", dtype=pd.dtype)
+        ops.append(dict(op=label, **time_k1(torch, K, pd, x, label)))
     check(len(ops) > 0, "slice: the problem holds no PlaneDia operator")
 
     modes = tuple(meta.group_modes)
@@ -434,7 +543,7 @@ def main() -> int:
          load_s=time.perf_counter() - t,
          ptxas=[ln for ln in lib.log.splitlines() if "Used" in ln])
 
-    rows = phase_kernels(torch, np, args)
+    rows = phase_kernels(torch, args)
     phase_small(torch, np)
     launches = phase_slice(torch, np, args)
 
@@ -447,6 +556,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
+        "ms_cold": main_row["ms_cold"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],

@@ -24,6 +24,18 @@ import torch.nn.functional as F
 
 from .ell import broadcast_shapes
 
+# The CUDA kernel's plan (csrc/plane_dia.cu, built once per operator): at
+# most PLAN_CAP planes per work item and PLAN_WINDOW shifts per offset
+# group (the kernel refuses a plan built for other numbers); a block takes
+# PLAN_TILE_BYTES of plane columns.  A launch of fewer than PLAN_MIN_BLOCKS
+# blocks (about three per SM of an H100) is bound by its chains of load
+# latencies, so the plan of a small operator cuts its work items smaller
+# (``plan_cap``).
+PLAN_CAP = 8
+PLAN_WINDOW = 12
+PLAN_TILE_BYTES = 512
+PLAN_MIN_BLOCKS = 384
+
 # The class cap that decides between PlaneDia and the other formats: the
 # JAX package's VALS_VMEM_MAX (sparse/pallas_dia.py), copied as a plain
 # number so the port picks exactly the JAX package's CPU formats.  It says
@@ -140,12 +152,66 @@ class Dia:
         return _with_tail(y.expand(batch + (na,)), xb, n, self.tail_identity)
 
 
+def class_plan(kz: np.ndarray, n_classes: int,
+               cap: int = PLAN_CAP) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's work list for a (B, nz) class map: ``pairs``, the
+    (body, plane) pairs as b*nz + z sorted by class (stable), and ``items``
+    (n_items, 3) = (class, first, count), each class's run of ``pairs`` cut
+    into chunks of at most ``cap`` planes.  A class with no plane has no
+    item."""
+    flat = np.asarray(kz).reshape(-1)
+    if flat.size and (flat.min() < 0 or flat.max() >= n_classes):
+        raise ValueError(f"class_plan: class ids outside [0, {n_classes})")
+    pairs = np.argsort(flat, kind="stable").astype(np.int32)
+    counts = np.bincount(flat, minlength=n_classes)
+    items = []
+    first = 0
+    for c, n in enumerate(counts.tolist()):
+        items += [(c, first + s, min(cap, n - s)) for s in range(0, n, cap)]
+        first += n
+    return pairs, np.asarray(items, np.int32).reshape(-1, 3)
+
+
+def plan_cap(kz: np.ndarray, n_classes: int, plane: int,
+             itemsize: int) -> int:
+    """Planes per work item for a (B, nz) class map: PLAN_CAP, halved
+    while the launch would have fewer than PLAN_MIN_BLOCKS blocks (work
+    items x column tiles), down to one plane."""
+    counts = np.bincount(np.asarray(kz).reshape(-1), minlength=n_classes)
+    tiles = -(-plane * itemsize // PLAN_TILE_BYTES)
+    cap = PLAN_CAP
+    while cap > 1 and int((-(-counts // cap)).sum()) * tiles < PLAN_MIN_BLOCKS:
+        cap //= 2
+    return cap
+
+
+def offset_groups(offsets: Sequence[int],
+                  window: int = PLAN_WINDOW) -> np.ndarray:
+    """(G, 1 + window) int32: the offsets cut into groups of ``window``
+    consecutive shifts.  Row g holds the group's first shift g0 and, in slot
+    k, the index d of offset g0 + k, or -1 where the operator has none."""
+    order = np.argsort(np.asarray(offsets, np.int64), kind="stable")
+    rows: list[list[int]] = []
+    for d in order.tolist():
+        off = int(offsets[d])
+        row = rows[-1] if rows else None
+        if row is None or off >= row[0] + window or row[1 + off - row[0]] >= 0:
+            row = [off] + [-1] * window
+            rows.append(row)
+        row[1 + off - row[0]] = d
+    return np.asarray(rows, np.int32).reshape(-1, 1 + window)
+
+
 class PlaneDia:
     """Per-z-plane-deduplicated batched DIA for uniform structured grids.
 
     vals: (C, D, P) unique value slabs, P = 3*ny*nx dofs per z-plane;
-    kz: (B, nz) int32 class of every (body, plane); ``off`` holds the
-    offsets as an int64 tensor on the operator's device for the kernel."""
+    kz: (B, nz) int32 class of every (body, plane).  The constructor also
+    builds the CUDA kernel's plan as int32 tensors on kz's device
+    (``class_plan`` with ``plan_cap`` planes per item, and
+    ``offset_groups``): ``plan_pairs``, ``plan_items`` and
+    ``plan_groups``.  A kz on the card is read to the host here, once;
+    ``mv`` never reads it back."""
 
     def __init__(self, vals: torch.Tensor, kz: torch.Tensor,
                  offsets: tuple[int, ...], n_rows: int, plane: int,
@@ -153,8 +219,14 @@ class PlaneDia:
         self.vals = vals          # (C, D, P)
         self.kz = kz              # (B, nz) int32
         self.offsets = tuple(int(o) for o in offsets)
-        self.off = torch.tensor(self.offsets, dtype=torch.int64,
-                                device=vals.device)
+        kz_host = kz.detach().cpu().numpy()
+        pairs, items = class_plan(
+            kz_host, vals.shape[0],
+            plan_cap(kz_host, vals.shape[0], plane, vals.element_size()))
+        self.plan_pairs = torch.from_numpy(pairs).to(kz.device)
+        self.plan_items = torch.from_numpy(items).to(kz.device)
+        self.plan_groups = torch.from_numpy(
+            offset_groups(self.offsets)).to(kz.device)
         self.starts = _window_starts(self.offsets, vals.device)
         self.runs = _window_runs(self.offsets)
         self._n_rows = int(n_rows)

@@ -11,10 +11,10 @@ Replaces the JAX package's Pallas TPU kernel
 VMEM and shifted x by lane rotations.  On an H100 the SpMV is bound by
 memory: 2 flops per value read, so its least time is the table, x and y
 read or written once, over the memory rate.  The CUDA kernel
-(``csrc/plane_dia.cu``) gives one thread to each active output row, reads
-the class id once and then, per offset, one coalesced value and one x
-element; at the slice's shapes the table fits the 50 MB L2, so it comes from
-device memory about once per launch.
+(``csrc/plane_dia.cu``) follows the operator's plan (``PlaneDia``'s
+``plan_pairs``, ``plan_items``, ``plan_groups``, built once on the host):
+a block reads one class slab tile once and applies it to every plane of its
+work item, and the same launch writes the tail rows.
 
 ``plane_dia_mv`` is the wrapper, and ``PlaneDia.mv`` always calls it: the
 plain version for CPU tensors only; for CUDA tensors it launches the kernel
@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import cuda_lib
+from . import dia
 from .dia import _shifted_sum, _with_tail
 from .ell import broadcast_shapes
 
@@ -77,34 +78,42 @@ def plane_dia_mv(pd, x: torch.Tensor) -> torch.Tensor:
             f"plane_dia_mv: x shape {tuple(x.shape)} must be (B, n_rows) = "
             f"{(B, n)}"
         )
-    if not (B <= 65535 and P == pd.plane and nz * P <= n):
+    if not (P == pd.plane and nz * P <= n and B * nz < 2 ** 31):
         raise ValueError(f"plane_dia_mv: unsupported shape B={B} nz={nz} "
                          f"P={P} n={n}")
-    for name, t in (("vals", pd.vals), ("kz", pd.kz), ("off", pd.off)):
+    if len(pd.offsets) != D or max(abs(o) for o in pd.offsets) >= 2 * P:
+        raise ValueError("plane_dia_mv: the offsets must match the table "
+                         "and lie within two planes (|off| < 2P)")
+    plan = (pd.plan_pairs, pd.plan_items, pd.plan_groups)
+    for name, t in (("vals", pd.vals), ("plan_pairs", plan[0]),
+                    ("plan_items", plan[1]), ("plan_groups", plan[2])):
         if t.device != x.device:
             raise ValueError(f"plane_dia_mv: {name} on {t.device}, x on "
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError(f"plane_dia_mv: {name} is not contiguous")
-    if pd.kz.dtype != torch.int32 or pd.off.dtype != torch.int64:
-        raise TypeError("plane_dia_mv: kz must be int32 and off int64")
-    if pd.off.numel() != D:
-        raise ValueError("plane_dia_mv: offsets do not match the table")
+    if any(t.dtype != torch.int32 for t in plan):
+        raise TypeError("plane_dia_mv: the plan must be int32")
+    if (plan[0].numel() != B * nz or plan[1].ndim != 2
+            or plan[1].shape[1] != 3
+            or tuple(plan[2].shape[1:]) != (dia.PLAN_WINDOW + 1,)):
+        raise ValueError("plane_dia_mv: the plan does not match the "
+                         "operator")
+    if pd.vals.data_ptr() % 16:
+        raise ValueError("plane_dia_mv: vals must start on 16 bytes")
+    if x.data_ptr() % 16:
+        x = x.clone()             # the kernel reads x in 16-byte chunks
     lib = cuda_lib.load()
     fn = (lib.plane_dia_mv_f64 if x.dtype == torch.float64
           else lib.plane_dia_mv_f32)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(pd.vals.data_ptr(), pd.kz.data_ptr(), pd.off.data_ptr(),
-             x.data_ptr(), y.data_ptr(), B, nz, P, D, n, stream)
+    err = fn(pd.vals.data_ptr(), plan[0].data_ptr(), plan[1].data_ptr(),
+             plan[2].data_ptr(), x.data_ptr(), y.data_ptr(), B, C, nz, P, D,
+             plan[2].shape[0], plan[1].shape[0], n, int(pd.tail_identity),
+             dia.PLAN_WINDOW, dia.PLAN_CAP, stream)
     if err != 0:
         raise RuntimeError(f"plane_dia_mv: kernel launch failed, "
                            f"cudaError {err}")
     LAUNCHES += 1
-    na = nz * P
-    if na < n:
-        if pd.tail_identity:
-            y[:, na:].copy_(x[:, na:])
-        else:
-            y[:, na:].zero_()
     return y.to(out_dtype)

@@ -31,11 +31,12 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 # name -> argtypes of every C entry point the library exports
+# plane_dia_mv_*: vals, pairs, items, groups, x, y, B, C, nz, P, D, G,
+# n_items, n_rows, tail_identity, window, cap, stream
+_PLANE_DIA = [_vp] * 6 + [_i] * 7 + [ctypes.c_longlong] + [_i] * 3 + [_vp]
 SIGNATURES = {
-    "plane_dia_mv_f32": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                         ctypes.c_longlong, _vp],
-    "plane_dia_mv_f64": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                         ctypes.c_longlong, _vp],
+    "plane_dia_mv_f32": _PLANE_DIA,
+    "plane_dia_mv_f64": _PLANE_DIA,
 }
 
 

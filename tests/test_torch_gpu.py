@@ -1,5 +1,6 @@
 """Card-only checks of the port: the CUDA kernel K1 against its plain
-PyTorch version, plain ``Dia.mv``'s card branch against its CPU branch, and
+PyTorch version (at the slice's shape and at the edges of its plan and
+tiles), plain ``Dia.mv``'s card branch against its CPU branch, and
 the small BLOCK solved on the card against the CPU.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
@@ -59,6 +60,84 @@ def test_k1_matches_plain_on_card(dtype, rtol, tail):
     torch.cuda.synchronize()
     scale = float(y_plain.abs().max())
     assert float((y - y_plain).abs().max()) <= rtol * scale
+
+
+# (label, B, node grid (nz, ny, nx), classes C, class layout, offsets, n_rows
+# past the active rows, x misaligned by one element).  The kernel's tile is
+# 32 * V plane columns: 128 in f32, 64 in f64.
+EDGE_CASES = [
+    ("nz 1, C 1", 3, (1, 5, 7), 1, "uniform", "stiffness", 17, False),
+    ("a class with no planes", 4, (6, 3, 4), 6, "no_last", "stiffness", 0,
+     False),
+    ("one class with all planes", 4, (9, 3, 3), 3, "all_first", "stiffness",
+     3, False),
+    ("P < tile", 2, (5, 2, 3), 4, "uniform", "stiffness", 7, False),
+    ("P not a multiple of the tile", 3, (4, 7, 11), 5, "uniform",
+     "stiffness", 64, False),
+    ("offsets up to 2P - 1", 2, (7, 2, 5), 3, "uniform", "wide", 9, False),
+    ("B 1", 1, (8, 5, 5), 2, "uniform", "stiffness", 0, False),
+    ("x off 16-byte alignment", 3, (5, 4, 6), 3, "uniform", "stiffness", 1,
+     True),
+]
+
+
+def _edge_plane_dia(dtype, B, grid, C, layout, kind, extra, tail, seed):
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = grid
+    P = 3 * ny * nx
+    if kind == "wide":
+        offs = sorted({-(2 * P - 1), -P - 3, -7, 0, 1, 9, P + 4, 2 * P - 1})
+    else:
+        offs = [o for o in _stiffness_offsets(grid) if abs(o) < 2 * P]
+    if layout == "uniform":
+        kz = rng.integers(0, C, (B, nz))
+    elif layout == "no_last":
+        kz = rng.integers(0, C - 1, (B, nz))
+    else:
+        kz = np.zeros((B, nz), np.int64)
+    n = nz * P + extra
+    vals = torch.from_numpy(rng.standard_normal((C, len(offs), P))).to(dtype)
+    pd = PlaneDia(vals.cuda(), torch.from_numpy(kz.astype(np.int32)).cuda(),
+                  tuple(offs), n, P, tail_identity=tail)
+    return pd, torch.from_numpy(rng.standard_normal((B, n))).to(dtype), n
+
+
+@pytest.mark.parametrize("tail", [True, False])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_k1_edge_shapes_match_plain_on_card(case, dtype, rtol, tail):
+    """One launch per call writes the active and the tail rows, at shapes
+    at the edges of the kernel's plan and tiles."""
+    _need_card()
+    label, B, grid, C, layout, kind, extra, misalign = case
+    pd, x_host, n = _edge_plane_dia(dtype, B, grid, C, layout, kind, extra,
+                                    tail, seed=len(label))
+    if misalign:
+        buf = torch.empty(B * n + 1, dtype=dtype, device="cuda")
+        x = buf[1:].view(B, n)
+        x.copy_(x_host)
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = x_host.cuda()
+    before = K.LAUNCHES
+    y = K.plane_dia_mv(pd, x)
+    assert K.LAUNCHES == before + 1
+    y_plain = K.plane_dia_mv_plain(pd, x)
+    torch.cuda.synchronize()
+    scale = float(y_plain.abs().max())
+    assert scale > 0
+    assert float((y - y_plain).abs().max()) <= rtol * scale
+
+
+def test_k1_refuses_offsets_past_two_planes_on_card():
+    _need_card()
+    P = 6
+    pd = PlaneDia(torch.ones((1, 2, P), device="cuda"),
+                  torch.zeros((1, 3), dtype=torch.int32, device="cuda"),
+                  (0, 2 * P), 3 * P, P)
+    with pytest.raises(ValueError):
+        K.plane_dia_mv(pd, torch.ones((1, 3 * P), device="cuda"))
 
 
 def test_k1_wrapper_casts_and_refuses_on_card():
