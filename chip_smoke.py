@@ -24,7 +24,17 @@ Phases, one line each with its ``elapsed_s``:
      K1 held against its plain version on every PlaneDia operator of the
      problem and timed there warm and cold, then solved on the card through ``contact_analysis``: it must
      converge in 19-21 ADMM iterations through K1 and pass the patch test
-     (u_z = p z / E).
+     (u_z = p z / E);
+  5. examples — TORSION, BEAM, CYLINDER (the 4-section stack and the
+     CYLINDER_1 cross-corner variant) and DEHW built by the port's host
+     code and solved through the CLI's solve: at the JAX CLI's small
+     configuration on the card against the CPU (the CPU solves run in
+     worker processes from the start of the script), then one level of
+     refinement above it on the card alone, held to the example's oracle
+     (TORSION's analytic twist, BEAM's unsplit solve, CYLINDER's line load
+     and Hertz peak, DEHW's monitors and contact pressures after a fixed
+     iteration count).  One line per solve, with its cuts from the
+     reference's settings, K1 launches and peak device memory.
 
 Then the ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check ends the run
@@ -518,6 +528,363 @@ def phase_slice(torch, np, args):
     return launches
 
 
+# ------------------------------------------------------------- examples
+
+# The examples' CPU solves run in worker processes beside the card phases
+# (the longest, DEHW, takes minutes on the CPU); each worker runs this many
+# torch threads.
+EXAMPLE_WORKERS = 3
+WORKER_THREADS = 2
+# the card against the CPU: the same iteration count and u, z, lambda,
+# gamma within this fraction of their largest entries
+EXAMPLE_TOL = 1e-8
+# DEHW does not converge in 3000 iterations (nor does the JAX package, nor
+# the C++ reference): its card and CPU solves are compared after
+# DEHW_CHECK_ITERS iterations (one costs ~45 s on the CPU), and its larger
+# run on the card stops at DEHW_ITERS
+DEHW_CHECK_ITERS = 2
+DEHW_ITERS = 20
+# the examples in the order the card runs them; the pool computes their
+# CPU references in the same order, so each is ready when the card needs it
+EXAMPLES = ("torsion", "beam", "cylinder_stack4", "cylinder_cross_corner",
+            "dehw")
+
+
+def example_model(name: str, scale: str):
+    """An example built on the CPU by the port's host code at ``scale``
+    "small" (the JAX CLI's small configuration) or "larger" (one level of
+    refinement above it).  Returns (prob, meta, bodies, cfg, cuts): the
+    cuts list each setting that differs from the reference's."""
+    from ddpca_admm_tpu_torch import cli
+
+    if name == "torsion":
+        from ddpca_admm_tpu_torch.models.torsion import (
+            TorsionConfig,
+            build_torsion_model,
+        )
+
+        homo = 1 if scale == "small" else 2
+        cfg = TorsionConfig(**dict(cli.SMALL_TORSION, glob_homo=homo))
+        prob, meta, bodies, cfg = build_torsion_model(cfg, device="cpu")
+        cuts = ["divi (1,8,2) of (1,32,8)", "doma (1,4,2) of (1,32,8)",
+                f"glob_homo {homo} of 4"]
+    elif name == "beam":
+        from ddpca_admm_tpu_torch.models.beam import (
+            BeamConfig,
+            build_beam_model,
+        )
+
+        leve = 1 if scale == "small" else 2
+        cfg = BeamConfig(**dict(cli.SMALL_BEAM, glob_leve=leve))
+        prob, meta, bodies, cfg = build_beam_model(cfg, device="cpu")
+        cuts = ["divi (8,4,2) of (64,4,2)", "doma (4,2,1) of (32,4,2)",
+                f"glob_leve {leve} of 4"]
+    elif name.startswith("cylinder"):
+        from ddpca_admm_tpu_torch.models.cylinder import build_cylinder_model
+
+        stack4 = name == "cylinder_stack4"
+        cfg = cli.cylinder_config("small", stack4=stack4,
+                                  cross_corner=not stack4)
+        if scale != "small":
+            cfg.loca_leve += 1
+        prob, meta, bodies, cfg = build_cylinder_model(cfg, device="cpu")
+        cuts = ["glob_inho 2 of 3", f"loca_leve {cfg.loca_leve} of 7",
+                "band_widt 8e-4 of 1e-4", "copy_numb 1 of 16"]
+    elif name == "dehw":
+        from ddpca_admm_tpu_torch.models.dehw_assembly import (
+            DehwDDConfig,
+            build_dehw_assembly,
+            finalize_dehw_problem,
+        )
+
+        grid = cli.dehw_grid()
+        if scale != "small":
+            grid.glob_homo += 1
+        cfg = DehwDDConfig(grid=grid)
+        bodies, regions, _ = build_dehw_assembly(cfg)
+        prob, meta = finalize_dehw_problem(bodies, regions, cfg,
+                                           device="cpu")
+        cuts = ["worm_numb (2,1,1,2,2) of (4,2,2,4,4)",
+                "whee_numb (2,2,1,2,2) of (4,4,2,4,8)", "glob_inho 0 of 1",
+                f"glob_homo {grid.glob_homo} of 2", "loca_leve 1 of 3"]
+    else:
+        raise ValueError(name)
+    return prob, meta, bodies, cfg, cuts
+
+
+def state_arrays(st) -> dict:
+    out = {"u": st.u.cpu().numpy()}
+    for g, gs in enumerate(st.groups):
+        out[f"z[{g}]"] = gs.z.cpu().numpy()
+        out[f"lam[{g}]"] = gs.lam.cpu().numpy()
+        out[f"gamma[{g}]"] = gs.gamma.cpu().numpy()
+    return out
+
+
+def cpu_reference(name: str) -> dict:
+    """Worker process: the small example solved on the CPU through the
+    CLI's solve (the plain versions of every kernel)."""
+    import torch
+
+    from ddpca_admm_tpu_torch import cli
+
+    torch.set_num_threads(WORKER_THREADS)
+    t = time.perf_counter()
+    prob, meta, _, _, _ = example_model(name, "small")
+    setup_s = time.perf_counter() - t
+    max_iter = DEHW_CHECK_ITERS if name == "dehw" else 3000
+    st, solve_s = cli.solve(prob, meta, max_iter=max_iter, device="cpu")
+    return dict(arrays=state_arrays(st), it=st.it, converged=st.converged,
+                inner_iters=st.inner_iters, setup_s=setup_s,
+                solve_s=solve_s)
+
+
+def card_solve(torch, prob, meta, max_iter, moni=False):
+    """The CLI's solve on the card with K1's launches counted and the peak
+    device memory read: (state, solve_s, launches, peak bytes)."""
+    import gc
+
+    from ddpca_admm_tpu_torch import cli
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+
+    # the peak counts this solve alone: collect what an earlier solve left
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    st, solve_s = cli.solve(prob, meta, max_iter=max_iter, moni=moni,
+                            device="cuda")
+    launches = K.LAUNCHES
+    # K1 serves PlaneDia operators only: where the example builds none (all
+    # its levels are ELL, as the JAX package's are), it has no launch
+    if plane_dias(prob):
+        check(launches > 0, "examples: PlaneDia operators but no K1 launch")
+    else:
+        check(launches == 0, f"examples: {launches} K1 launches on a "
+                             "problem without PlaneDia operators")
+    return st, solve_s, launches, torch.cuda.max_memory_allocated()
+
+
+def full_displacements(meta, bodies, u):
+    """Per body, the nodal displacements (N, 3) in global axes."""
+    out = []
+    for b, (body, s) in enumerate(zip(bodies, meta.systems)):
+        d = s.full_displacement(u[b][: s.n_dof]).reshape(-1, 3).copy()
+        for i, R in body.node_rota.items():
+            d[i] = R @ d[i]
+        out.append(d)
+    return out
+
+
+def torsion_oracle(np, meta, bodies, cfg, u) -> dict:
+    """Tangential displacement at the outer radius of the loaded end face
+    against T l R / (G I_p)."""
+    ut = []
+    for body, d in zip(bodies, full_displacements(meta, bodies, u)):
+        X = body.mesh.coords
+        r = np.hypot(X[:, 0], X[:, 1])
+        sel = (np.abs(r - cfg.oute_radi) < 1e-9) \
+            & (np.abs(X[:, 2] - cfg.axia_leng) < 1e-9)
+        ut.append((-X[sel, 1] * d[sel, 0] + X[sel, 0] * d[sel, 1]) / r[sel])
+    ut = np.concatenate(ut)
+    check(ut.size > 0, "torsion: no node on the loaded outer edge")
+    return dict(twist=float(ut.mean()), analytic_twist=cfg.analytic_twist,
+                twist_ratio=float(ut.mean()) / cfg.analytic_twist)
+
+
+def beam_oracle(np, meta, bodies, cfg, u) -> dict:
+    """The DD solution against the unsplit single-body spsolve (the
+    reference's SOLVE_NODD oracle, examples/BEAM.h:55-57,403-416)."""
+    import scipy.sparse.linalg as spla
+
+    from ddpca_admm_tpu_torch.fem.assembly import assemble_stiffness
+    from ddpca_admm_tpu_torch.fem.constraints import constrain
+    from ddpca_admm_tpu_torch.mesh.hexmesh import HexMesh
+    from ddpca_admm_tpu_torch.models.beam import (
+        _beam_load,
+        straight_grid,
+        twist_map,
+    )
+    from ddpca_admm_tpu_torch.models.simple import Body
+
+    m = HexMesh()
+    m.add_box_grid(np.zeros(3), np.ones(3), cfg.divi,
+                   coords_fn=straight_grid(cfg, np.zeros(3), cfg.divi,
+                                           cfg.divi, (0, 0, 0)))
+    m.refine_uniform(cfg.glob_leve, pattern=0)
+    m.transform(twist_map(cfg, 1))
+    m.transfer()
+    mb = Body(mesh=m, e_mod=cfg.e_mod, nu=cfg.nu)
+    for i, c in enumerate(m.coords):
+        if c[0] <= 1e-10:
+            for k in range(3):
+                mb.cons_dofv[3 * i + k] = 0.0
+    _beam_load(cfg, mb, 0)
+    A = assemble_stiffness(m, mb.e_mod, mb.nu)
+    sysm = constrain(m, A, mb.cons_dofv, mb.exte_forc)
+    u_mono = sysm.full_displacement(
+        spla.spsolve(sysm.cons_stif[-1].tocsc(), sysm.cons_forc)
+    ).reshape(-1, 3)
+    scale = float(np.abs(u_mono).max())
+    worst = 0.0
+    for body, d in zip(bodies, full_displacements(meta, bodies, u)):
+        ids = m.add_nodes(body.mesh.coords)
+        worst = max(worst, float(np.linalg.norm(d - u_mono[ids],
+                                                axis=1).max()))
+    return dict(unsplit_dof=int(sysm.cons_forc.size), max_abs_u=scale,
+                dd_vs_unsplit_rel=worst / scale)
+
+
+def region_pressures(np, meta, st) -> dict:
+    """Per region: (peak normal traction, integrated normal force, active
+    integral points), from the solved gamma."""
+    out = {}
+    for g_i, mode in enumerate(meta.group_modes):
+        gamma = st.groups[g_i].gamma.cpu().numpy()
+        for slot, ri in enumerate(meta.group_region_idx[g_i]):
+            reg = meta.regions[ri].region
+            ip = reg.ip
+            gn = gamma[slot][: ip.n] if mode == "scalar" \
+                else gamma[slot][: 3 * ip.n: 3]
+            out[ri] = dict(fric=float(reg.fric), points=int(ip.n),
+                           active=int((gn > 0).sum()),
+                           p_max=float(gn.max(initial=0.0)),
+                           force=float(gn @ ip.weight))
+    return out
+
+
+def cylinder_oracle(np, meta, cfg, st, cross_corner) -> dict:
+    """Each cylinder contact transmits the line load (mirror halves half
+    each) within 5%, and its peak pressure lies within 0.6-1.3 of Hertz's
+    p_max (the JAX package's tests/test_cylinder_stack.py)."""
+    a, p_max = cfg.hertz
+    pres = region_pressures(np, meta, st)
+    n_cont = 2 if cross_corner else 4
+    f_expect = abs(cfg.load_inte) * cfg.leng / (1 if cross_corner else 2)
+    force_rel = [pres[ri]["force"] / f_expect for ri in range(n_cont)]
+    p_rel = [pres[ri]["p_max"] / p_max for ri in range(n_cont)]
+    check(all(abs(f - 1.0) <= 0.05 for f in force_rel),
+          f"cylinder: contact forces / line load {force_rel}")
+    check(all(0.6 < p < 1.3 for p in p_rel),
+          f"cylinder: contact p_max / Hertz {p_rel}")
+    return dict(hertz_half_width=a, hertz_p_max=p_max,
+                contact_force_over_load=force_rel,
+                contact_p_max_over_hertz=p_rel)
+
+
+def dehw_oracle(np, meta, st) -> dict:
+    """The last monitor row's median and, per contact region, its active
+    integral points and peak pressure."""
+    hist = st.moni_hist.cpu().numpy()[: st.it]
+    check(bool(np.isfinite(hist[-1]).all()), "dehw: non-finite monitors")
+    pres = region_pressures(np, meta, st)
+    contact = {f"region_{ri}": dict(points=v["points"], active=v["active"],
+                                    p_max_Pa=v["p_max"])
+               for ri, v in pres.items() if v["fric"] > 0.0}
+    check(sum(v["active"] for v in contact.values()) > 0,
+          "dehw: no active contact point")
+    return dict(monitor_last_median=float(np.median(hist[-1])),
+                contact_regions=contact)
+
+
+def compare_states(np, name, card, cpu) -> dict:
+    """The card's state against the CPU's: each quantity's largest error
+    over its largest entry (for DEHW, the largest entry over all region
+    groups: a group of open contacts holds only rounding noise)."""
+    scales = {}
+    for k, b in cpu["arrays"].items():
+        key = k.split("[")[0] if name == "dehw" else k
+        scales[key] = max(scales.get(key, 0.0), float(np.abs(b).max()))
+    rel = {}
+    for k, b in cpu["arrays"].items():
+        a = card[k]
+        check(a.shape == b.shape, f"{name}: {k} shapes {a.shape} {b.shape}")
+        check(bool(np.isfinite(a).all()), f"{name}: {k} is not finite")
+        scale = scales[k.split("[")[0] if name == "dehw" else k]
+        rel[k] = float(np.abs(a - b).max()) / scale if scale else 0.0
+        check(rel[k] <= EXAMPLE_TOL,
+              f"{name}: card against CPU, {k} off by {rel[k]} of its "
+              f"largest entry")
+    return rel
+
+
+def phase_examples(torch, np, refs):
+    """Each example at the JAX CLI's small configuration on the card,
+    against its CPU solve from the worker pool; then one larger solve on
+    the card alone, held to the example's oracle."""
+    import tempfile
+
+    from ddpca_admm_tpu_torch import cli
+
+    launches_by_path = {}
+    for name in EXAMPLES:
+        for scale in ("small", "larger"):
+            t = time.perf_counter()
+            prob, meta, bodies, cfg, cuts = example_model(name, scale)
+            setup_s = time.perf_counter() - t
+            row = dict(example=name, scale=scale, cuts=cuts,
+                       bodies=len(meta.systems),
+                       dof=int(sum(s.n_dof for s in meta.systems)),
+                       n_pad=meta.n_pad, group_modes=meta.group_modes,
+                       coarse=[("ddmg" if co.mg is not None else "dense")
+                               for co in (prob.coarse or ())],
+                       setup_s=setup_s)
+            if name == "dehw":
+                max_iter = DEHW_CHECK_ITERS if scale == "small" \
+                    else DEHW_ITERS
+            else:
+                max_iter = 3000
+            st, solve_s, launches, peak = card_solve(
+                torch, prob, meta, max_iter, moni=(name == "dehw"))
+            launches_by_path[f"{name} {scale}"] = launches
+            row.update(solve_s=solve_s, it=st.it, converged=st.converged,
+                       inner_iters=st.inner_iters, k1_launches=launches,
+                       max_memory_allocated=peak)
+            converges = name != "dehw"
+            if converges:
+                check(st.converged, f"{name} {scale}: no convergence in "
+                                    f"{st.it} iterations")
+            else:
+                check(st.it == max_iter, f"dehw {scale}: it = {st.it}")
+            u = st.u.cpu().numpy()
+            check(u.shape == (len(meta.systems), meta.n_pad)
+                  and bool(np.isfinite(u).all()),
+                  f"{name} {scale}: u is not finite or of shape {u.shape}")
+            if scale == "small":
+                cpu = refs[name].get(timeout=900)
+                row.update(it_cpu=cpu["it"], inner_iters_cpu=cpu["inner_iters"],
+                           cpu_setup_s=cpu["setup_s"],
+                           cpu_solve_s=cpu["solve_s"])
+                check(st.it == cpu["it"] and st.converged == cpu["converged"],
+                      f"{name}: it {st.it} on the card, {cpu['it']} on the "
+                      "CPU")
+                row["card_vs_cpu_rel"] = compare_states(
+                    np, name, state_arrays(st), cpu)
+                # the CLI's result writers, on the card's state
+                with tempfile.TemporaryDirectory() as d:
+                    cli.write_results(st, meta, bodies, d,
+                                      moni=(name == "dehw"))
+                    row["result_files"] = len(os.listdir(d))
+            elif name == "torsion":
+                row["oracle"] = torsion_oracle(np, meta, bodies, cfg, u)
+                check(abs(row["oracle"]["twist_ratio"] - 1.0) <= 1e-3,
+                      f"torsion: twist ratio {row['oracle']['twist_ratio']}")
+            elif name == "beam":
+                row["oracle"] = beam_oracle(np, meta, bodies, cfg, u)
+                check(row["oracle"]["dd_vs_unsplit_rel"] < 2e-3,
+                      f"beam: DD against unsplit {row['oracle']}")
+            elif name.startswith("cylinder"):
+                row["oracle"] = cylinder_oracle(
+                    np, meta, cfg, st, cross_corner=cfg.cross_corner)
+            else:
+                row["oracle"] = dehw_oracle(np, meta, st)
+            emit("examples", **row)
+            del prob, st
+            torch.cuda.empty_cache()
+    return launches_by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -543,9 +910,20 @@ def main() -> int:
          load_s=time.perf_counter() - t,
          ptxas=[ln for ln in lib.log.splitlines() if "Used" in ln])
 
-    rows = phase_kernels(torch, args)
-    phase_small(torch, np)
-    launches = phase_slice(torch, np, args)
+    # the examples' CPU references, computed beside the card phases
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(EXAMPLE_WORKERS)
+    try:
+        refs = {name: pool.apply_async(cpu_reference, (name,))
+                for name in EXAMPLES}
+        rows = phase_kernels(torch, args)
+        phase_small(torch, np)
+        launches = phase_slice(torch, np, args)
+        example_launches = phase_examples(torch, np, refs)
+    finally:
+        pool.terminate()
+        pool.join()
 
     main_row = rows[0]   # A_top, the largest K1 call of the main path
     kernels = [{
@@ -554,6 +932,8 @@ def main() -> int:
         "source": SOURCE,
         "replaces": REPLACES,
         "launches": launches,
+        "launches_by_path": {"block glob_leve=2": launches,
+                             **example_launches},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
         "ms_cold": main_row["ms_cold"],

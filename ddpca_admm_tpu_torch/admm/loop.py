@@ -64,6 +64,10 @@ class AdmmState(NamedTuple):
     mult_frozen: bool                 # coarse correction freeze
     inner_iters: int                  # total inner body-CG iterations
     coarse_x: tuple                   # per coarse correction: (Nc,) warm start
+    moni_hist: torch.Tensor           # (hist_rows, n_monitors) per-iteration
+    # monitor ratios, written in place (hist_rows=1 when recording is off:
+    # the row is overwritten); ratios, not resuMoni's raw squared norms, as
+    # in the JAX package (utils/io.py::write_moni)
 
 
 def _project_gamma(g: RegionGroup, gamma: torch.Tensor,
@@ -246,6 +250,8 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
         ratio = vals / torch.clamp(allow, min=tiny)
         moni = state.moni.clone()
         moni[state.it % ADMM_MONI_CYCLE] = ratio
+        moni_hist = state.moni_hist
+        moni_hist[state.it % moni_hist.shape[0]] = ratio
 
         # convergence: every monitor ratio below crit (MCONTACT.h:2760)
         converged = bool((ratio <= crit_disp).all())
@@ -268,12 +274,13 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
             mult_frozen=mult_frozen,
             inner_iters=state.inner_iters + inner_it,
             coarse_x=tuple(new_coarse_x),
+            moni_hist=moni_hist,
         )
 
     return step
 
 
-def init_state(prob: AdmmProblem) -> AdmmState:
+def init_state(prob: AdmmProblem, hist_rows: int = 1) -> AdmmState:
     B, n = prob.cons_forc.shape
     dtype = prob.cons_forc.dtype
     dev = prob.cons_forc.device
@@ -303,6 +310,8 @@ def init_state(prob: AdmmProblem) -> AdmmState:
             torch.zeros(co.forc0.shape, dtype=dtype, device=dev)
             for co in (prob.coarse or ())
         ),
+        moni_hist=torch.full((hist_rows, n_moni), torch.inf, dtype=dtype,
+                             device=dev),
     )
 
 
@@ -310,12 +319,20 @@ def contact_analysis(
     prob: AdmmProblem,
     modes: tuple[str, ...],
     max_iter: int = ADMM_MAX_ITER,
+    record_moni: bool = False,
     device="cuda",
 ) -> AdmmState:
     """Run the ADMM loop to convergence (or ``max_iter``) on ``device``
-    (default the card; the problem is moved there if it lies elsewhere)."""
+    (default the card; the problem is moved there if it lies elsewhere).
+
+    ``record_moni=True`` sizes the history buffer to ``max_iter`` rows so
+    every iteration's monitor ratios survive the loop (resuMoni.txt parity,
+    MCONTACT.h:2742); rows past convergence stay +inf.  The JAX package's
+    ``chunk`` dispatch is not carried over: it works around a
+    remote-attached TPU, and this loop already checks convergence on the
+    host after every iteration."""
     prob = to_device(prob, resolve_device(device))
-    state = init_state(prob)
+    state = init_state(prob, hist_rows=max_iter if record_moni else 1)
     step = make_admm_step(prob, modes)
     while state.it < max_iter and not state.converged:
         with record_function("admm_step"):

@@ -1,7 +1,9 @@
 """Card-only checks of the port: the CUDA kernel K1 against its plain
 PyTorch version (at the slice's shape and at the edges of its plan and
-tiles), plain ``Dia.mv``'s card branch against its CPU branch, and
-the small BLOCK solved on the card against the CPU.
+tiles), plain ``Dia.mv``'s card branch against its CPU branch, the small
+BLOCK solved on the card against the CPU, and the stacked boxes with
+Coulomb friction and with coarse correction variants A and B solved on the
+card against the CPU.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
 
@@ -208,3 +210,74 @@ def test_small_block_card_matches_cpu(monkeypatch):
     assert cpu.converged and gpu.converged and cpu.it == gpu.it
     scale = float(cpu.u.abs().max())
     assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-6 * scale
+
+
+def _card_and_cpu_states(build, max_iter):
+    """Solve the problem ``build(device)`` gives on the CPU and on the card;
+    returns the two states."""
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+
+    states = {}
+    for dev in ("cpu", "cuda"):
+        prob, meta = build(dev)
+        states[dev] = contact_analysis(prob, tuple(meta.group_modes),
+                                       max_iter=max_iter, device=dev)
+    return states["cpu"], states["cuda"]
+
+
+def _assert_card_matches_cpu(cpu, gpu, tol=1e-8):
+    """The same iteration count, and u, z, lambda, gamma within ``tol`` of
+    their largest entries."""
+    assert cpu.it == gpu.it and cpu.converged == gpu.converged
+    pairs = [(cpu.u, gpu.u)]
+    for gc, gg in zip(cpu.groups, gpu.groups):
+        pairs += [(gc.z, gg.z), (gc.lam, gg.lam), (gc.gamma, gg.gamma)]
+    for a, b in pairs:
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("fric,max_iter", [(0.4, 300), (0.05, 40)],
+                         ids=["stick", "slide"])
+def test_friction_boxes_card_match_cpu(fric, max_iter):
+    """Coulomb friction (vector mode, the cone clip) on the stacked boxes
+    of the JAX package's friction test, held after a fixed count."""
+    _need_card()
+    from ddpca_admm_tpu_torch.models.simple import stacked_boxes_problem
+
+    def build(dev):
+        prob, meta, _ = stacked_boxes_problem(
+            div_bot=3, div_top=2, levels=0, pressure=-1.0e7, fric=fric,
+            shear=1.0e6, device=dev)
+        return prob, meta
+
+    cpu, gpu = _card_and_cpu_states(build, max_iter)
+    assert gpu.it == max_iter
+    _assert_card_matches_cpu(cpu, gpu)
+
+
+@pytest.mark.parametrize("musc", [1, 2])
+@pytest.mark.parametrize("solver", ["direct", "ddmg"])
+def test_coarse_variants_card_match_cpu(solver, musc):
+    """Coarse correction variant A (musc_sett 1) and B (2) with the dense
+    and the DD-multigrid coarse solve, on the refined stacked boxes."""
+    _need_card()
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.models import simple as S
+
+    _, _, bodies = S.stacked_boxes_problem(div_bot=3, div_top=2, levels=1,
+                                           device="cpu")
+    rho = S.penalty(25.0, S.char_length(bodies))
+    regions = [S.make_region(
+        bodies, 0, 1, S.plane_predicate(2, 1.0), S.plane_predicate(2, 1.0),
+        lambda x: x[:, :2], (6,) * 2, fric=0.0, pena_n=rho)]
+    systems = S.assemble_bodies(bodies, regions)
+
+    def build(dev):
+        return build_problem(systems, regions, dole=[1, 1], musc_sett=musc,
+                             meshes=[b.mesh for b in bodies],
+                             coarse_solver=solver, device=dev)
+
+    cpu, gpu = _card_and_cpu_states(build, 800)
+    assert cpu.converged
+    _assert_card_matches_cpu(cpu, gpu)

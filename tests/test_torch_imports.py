@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: in a fresh interpreter
 whose import system refuses ``jax``, ``jaxlib`` and ``ddpca_admm_tpu`` (and
 its submodules, not ``ddpca_admm_tpu_torch``), every module of the port
-imports, and the small BLOCK builds and solves on the CPU."""
+imports, the small BLOCK builds and solves on the CPU, and the port's
+command line runs TORSION at its small scale on the CPU."""
 
 import json
 import os
@@ -57,10 +58,22 @@ err = max(
               - p * body.mesh.coords[:, 2] / E).max())
     for b, (body, s) in enumerate(zip(model.bodies, meta.systems))
 )
+# the port's command line on the CPU: TORSION at the JAX CLI's small scale
+import contextlib
+import io
+import tempfile
+
+from ddpca_admm_tpu_torch import cli
+
+buf = io.StringIO()
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+    cli.main(["torsion", "--scale", "small", "--device", "cpu",
+              "--outdir", d])
+torsion = json.loads(buf.getvalue().strip().splitlines()[-1])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 print(json.dumps({"modules": mods, "it": st.it, "converged": st.converged,
                   "patch_err_rel": err / (abs(p) * sum(cfg.leng) / E),
-                  "loaded": loaded}))
+                  "torsion": torsion, "loaded": loaded}))
 '''
 
 
@@ -76,11 +89,22 @@ def test_port_runs_without_jax():
         "ddpca_admm_tpu_torch.sparse.plane_dia_kernel",
         "ddpca_admm_tpu_torch.utils.cuda_lib",
         "ddpca_admm_tpu_torch.models.block",
+        "ddpca_admm_tpu_torch.cli", "ddpca_admm_tpu_torch.utils.io",
+        "ddpca_admm_tpu_torch.mesh.curveds",
+        "ddpca_admm_tpu_torch.contact.adaptive",
+        "ddpca_admm_tpu_torch.models.torsion",
+        "ddpca_admm_tpu_torch.models.beam",
+        "ddpca_admm_tpu_torch.models.cylinder",
+        "ddpca_admm_tpu_torch.models.dehw_surf",
+        "ddpca_admm_tpu_torch.models.dehw_assembly",
     }
     assert expected <= set(out["modules"])
     assert out["converged"] and out["it"] == 3
     # the BLOCK patch test: u_z = p z / E in every body
     assert out["patch_err_rel"] <= 1e-6
+    # the CLI's TORSION run (81 iterations, as the JAX CLI's)
+    assert out["torsion"]["converged"]
+    assert out["torsion"]["iterations"] == 81
 
 
 def test_refusing_hook_refuses():
