@@ -34,7 +34,15 @@ Phases, one line each with its ``elapsed_s``:
      (TORSION's analytic twist, BEAM's unsplit solve, CYLINDER's line load
      and Hertz peak, DEHW's monitors and contact pressures after a fixed
      iteration count).  One line per solve, with its cuts from the
-     reference's settings, K1 launches and peak device memory.
+     reference's settings, K1 launches and peak device memory;
+  6. lagrange — the dual-mortar LAGRANGE solver: the stacked boxes at one
+     refinement level (BiCGSTAB on the device) on the card against the
+     CPU, at both preconditioners and with Coulomb friction, then BLOCK
+     at glob_leve=2 without domain decomposition (163,125 DOF) on the
+     card at both preconditioners, held to the patch test and the
+     expected contact states; no K1 launch (every operator is ELL);
+  7. apps    — DEHW's APPS eigen-analysis (``dehw --apps coarse``) through
+     the port's command line, host code, at the small grid.
 
 Then the ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check ends the run
@@ -885,6 +893,193 @@ def phase_examples(torch, np, refs):
     return launches_by_path
 
 
+# ------------------------------------------------------------- LAGRANGE
+
+# the card against the CPU: u and lambda within this fraction of their
+# largest entries, BiCGSTAB iterations of each Newton pass within this many
+LAGRANGE_TOL = 1e-8
+LAGRANGE_KRYLOV_SLACK = 2
+# (label, solve_lagrange's prec_type, stacked_boxes_problem's fixture): the
+# boxes at one refinement level, where Khat passes 500 rows and BiCGSTAB
+# runs on the device, frictionless (the patch test) and with the friction
+# fixture of the JAX package's tests/test_lagrange.py
+LAGRANGE_CASES = [
+    ("boxes levels=1", 1, {}),
+    ("boxes levels=1", 2, {}),
+    ("boxes levels=1, friction mu 0.15 shear 1.2e6", 1,
+     dict(pressure=-1.0e7, fric=0.15, shear=1.2e6)),
+]
+
+
+def lagrange_solve(torch, systems, regions, meshes, prec_type, dev):
+    """solve_lagrange on ``dev`` with K1's launches counted and the peak
+    device memory read: (result, seconds, launches, peak bytes or None)."""
+    import gc
+
+    from ddpca_admm_tpu_torch.admm.lagrange import solve_lagrange
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    t = time.perf_counter()
+    res = solve_lagrange(systems, regions, meshes, prec_type=prec_type,
+                         device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = K.LAUNCHES
+    # Khat is ELL and its restricted-GMG hierarchy has no grids (every
+    # level ELL): the LAGRANGE path launches no K1
+    check(launches == 0, f"lagrange: {launches} K1 launches")
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    return res, seconds, launches, peak
+
+
+def pass_rows(res) -> list:
+    return [dict(khat_rows=p["khat_rows"], bicgstab_iters=p["krylov_iters"],
+                 host_s=p["host_s"], prec_s=p["prec_s"],
+                 bicgstab_s=p["solve_s"])
+            for p in res.passes]
+
+
+def phase_lagrange(torch, np):
+    """The dual-mortar LAGRANGE solver: the boxes on the card against the
+    CPU, then BLOCK at glob_leve=2 without domain decomposition (the
+    monolithic form the reference's LAGRANGE case solves) on the card at
+    both preconditioners, held to the patch test."""
+    from ddpca_admm_tpu_torch.models import simple as S
+    from ddpca_admm_tpu_torch.models.block import BlockConfig, build_block_model
+
+    launches_by_path = {}
+    for label, prec_type, fixture in LAGRANGE_CASES:
+        _, meta, bodies = S.stacked_boxes_problem(
+            div_bot=3, div_top=2, levels=1, device="cpu", **fixture)
+        systems = S.assemble_bodies(bodies, meta.regions,
+                                    include_penalty=False)
+        meshes = [b.mesh for b in bodies]
+        cpu, cpu_s, _, _ = lagrange_solve(torch, systems, meta.regions,
+                                          meshes, prec_type, "cpu")
+        card, card_s, launches, peak = lagrange_solve(
+            torch, systems, meta.regions, meshes, prec_type, "cuda")
+        name = f"lagrange {label} prec_type {prec_type}"
+        launches_by_path[name] = launches
+        check(card.iters == cpu.iters,
+              f"{name}: Newton iters {card.iters} on the card, {cpu.iters} "
+              "on the CPU")
+        check(all(p["krylov_iters"] is not None for p in card.passes),
+              f"{name}: a Newton pass did not run BiCGSTAB")
+        check(all(abs(a["krylov_iters"] - b["krylov_iters"])
+                  <= LAGRANGE_KRYLOV_SLACK
+                  for a, b in zip(card.passes, cpu.passes)),
+              f"{name}: BiCGSTAB iterations {pass_rows(card)} against "
+              f"{pass_rows(cpu)}")
+        check(all(np.array_equal(a, b)
+                  for a, b in zip(card.status, cpu.status)),
+              f"{name}: the states differ")
+        rel = {}
+        for key, a, b in (("u", card.u, cpu.u), ("lagr", card.lagr, cpu.lagr)):
+            a, b = np.concatenate(a), np.concatenate(b)
+            check(bool(np.isfinite(a).all()), f"{name}: {key} not finite")
+            rel[key] = float(np.abs(a - b).max() / np.abs(b).max())
+            check(rel[key] <= LAGRANGE_TOL,
+                  f"{name}: card against CPU, {key} off by {rel[key]}")
+        emit("lagrange", case=label, prec_type=prec_type,
+             dof=int(sum(s.n_dof for s in systems)),
+             newton_iters=card.iters, passes=pass_rows(card),
+             passes_cpu=pass_rows(cpu), solve_s=card_s, cpu_solve_s=cpu_s,
+             card_vs_cpu_rel=rel, k1_launches=launches,
+             max_memory_allocated=peak)
+
+    # BLOCK glob_leve=2, no DD: one host build for both preconditioners
+    t = time.perf_counter()
+    cfg = BlockConfig(divi=(6, 6, 6), glob_leve=GLOB_LEVE,
+                      doma_numb=(1, 1, 1))
+    model = build_block_model(cfg)
+    # LAGRANGE takes the penalty-free stiffness (MCONTACT.h:2850-2860)
+    systems = S.assemble_bodies(model.bodies, model.regions,
+                                include_penalty=False)
+    setup_s = time.perf_counter() - t
+    meshes = [b.mesh for b in model.bodies]
+    E, p = cfg.e_mod, cfg.pressure
+    scale = abs(p) * sum(cfg.leng) / E
+    for prec_type in (1, 2):
+        res, solve_s, launches, peak = lagrange_solve(
+            torch, systems, model.regions, meshes, prec_type, "cuda")
+        name = f"lagrange block glob_leve={GLOB_LEVE} prec_type {prec_type}"
+        launches_by_path[name] = launches
+        check(all(pr["krylov_iters"] is not None for pr in res.passes),
+              f"{name}: a Newton pass did not run BiCGSTAB")
+        err = max(
+            float(np.abs(s.full_displacement(res.u[b])[2::3]
+                         - p * body.mesh.coords[:, 2] / E).max())
+            for b, (body, s) in enumerate(zip(model.bodies, systems))
+        )
+        regions = []
+        for ri, r in enumerate(model.regions):
+            fric = float(r.region.fric)
+            want = 1 if fric == 0.0 else 2
+            st = res.status[ri]
+            regions.append(dict(region=ri, fric=fric, nodes=int(st.size),
+                                at_status=int((st == want).sum()),
+                                status=want))
+        emit("lagrange", case=f"block divi 6 glob_leve={GLOB_LEVE} doma 1",
+             prec_type=prec_type, bodies=len(systems),
+             dof=int(sum(s.n_dof for s in systems)),
+             khat_rows=res.passes[-1]["khat_rows"], setup_s=setup_s,
+             newton_iters=res.iters, passes=pass_rows(res),
+             host_s=sum(pr["host_s"] for pr in res.passes),
+             prec_s=sum(pr["prec_s"] for pr in res.passes),
+             bicgstab_s=sum(pr["solve_s"] for pr in res.passes),
+             bicgstab_iters=sum(pr["krylov_iters"] for pr in res.passes),
+             solve_s=solve_s, regions=regions, patch_err_rel=err / scale,
+             k1_launches=launches, max_memory_allocated=peak)
+        check(bool(all(np.isfinite(u).all() for u in res.u)),
+              f"{name}: u is not finite")
+        check(err <= 5e-4 * scale, f"{name}: patch test error {err / scale}")
+        check(all(rg["at_status"] == rg["nodes"] for rg in regions),
+              f"{name}: contact nodes not all active (1) or interface "
+              f"nodes not all sticking (2): {regions}")
+        check(sum(rg["fric"] == 0.0 for rg in regions) == 2,
+              f"{name}: not two contact regions")
+    return launches_by_path
+
+
+def phase_apps(np):
+    """DEHW's APPS eigen-analysis through the port's command line, in
+    process, at the small grid (host code: the check is that it runs on
+    this machine's scipy without JAX)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from ddpca_admm_tpu_torch import cli
+
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["dehw", "--apps", "coarse", "--outdir", d])
+        seconds = time.perf_counter() - t
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        freq = np.loadtxt(os.path.join(d, "resuFreq.txt"), ndmin=2)
+        files = os.listdir(d)
+    modes = [f for f in files if f.startswith("resuDisp_")]
+    n_bodies = len({f.rsplit("-", 1)[1] for f in modes})
+    emit("apps", command="dehw --apps coarse", seconds=seconds,
+         frequencies=summary["frequencies"],
+         correlations=summary["correlations"], mode_files=len(modes),
+         bodies=n_bodies)
+    check(freq.shape == (10, 2) and bool(np.isfinite(freq).all()),
+          f"apps: resuFreq.txt holds {freq.shape}, or is not finite")
+    check(len(summary["frequencies"]) == 10
+          and bool(np.isfinite(summary["frequencies"]).all()),
+          "apps: not 10 finite frequencies")
+    check(n_bodies > 0 and len(modes) == 10 * n_bodies,
+          f"apps: {len(modes)} mode files for {n_bodies} bodies")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -924,6 +1119,8 @@ def main() -> int:
     finally:
         pool.terminate()
         pool.join()
+    lagrange_launches = phase_lagrange(torch, np)
+    phase_apps(np)
 
     main_row = rows[0]   # A_top, the largest K1 call of the main path
     kernels = [{
@@ -933,7 +1130,7 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": launches,
         "launches_by_path": {"block glob_leve=2": launches,
-                             **example_launches},
+                             **example_launches, **lagrange_launches},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
         "ms_cold": main_row["ms_cold"],

@@ -250,7 +250,8 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
         ratio = vals / torch.clamp(allow, min=tiny)
         moni = state.moni.clone()
         moni[state.it % ADMM_MONI_CYCLE] = ratio
-        moni_hist = state.moni_hist
+        # out of place, like moni: a caller may keep the old state
+        moni_hist = state.moni_hist.clone()
         moni_hist[state.it % moni_hist.shape[0]] = ratio
 
         # convergence: every monitor ratio below crit (MCONTACT.h:2760)
@@ -315,19 +316,28 @@ def init_state(prob: AdmmProblem, hist_rows: int = 1) -> AdmmState:
     )
 
 
+def admm_step(prob: AdmmProblem, state: AdmmState,
+              modes: tuple[str, ...]) -> AdmmState:
+    """One ADMM iteration of ``prob`` from ``state`` (both on one device).
+    A no-op once ``state.converged`` is set (see ``make_admm_step``)."""
+    return make_admm_step(prob, modes)(state)
+
+
 def contact_analysis(
     prob: AdmmProblem,
     modes: tuple[str, ...],
     max_iter: int = ADMM_MAX_ITER,
     record_moni: bool = False,
     device="cuda",
+    callback=None,
 ) -> AdmmState:
     """Run the ADMM loop to convergence (or ``max_iter``) on ``device``
     (default the card; the problem is moved there if it lies elsewhere).
 
     ``record_moni=True`` sizes the history buffer to ``max_iter`` rows so
     every iteration's monitor ratios survive the loop (resuMoni.txt parity,
-    MCONTACT.h:2742); rows past convergence stay +inf.  The JAX package's
+    MCONTACT.h:2742); rows past convergence stay +inf.  ``callback(state)``,
+    if given, runs after every iteration (monitor output, checkpoints).  The JAX package's
     ``chunk`` dispatch is not carried over: it works around a
     remote-attached TPU, and this loop already checks convergence on the
     host after every iteration."""
@@ -337,4 +347,19 @@ def contact_analysis(
     while state.it < max_iter and not state.converged:
         with record_function("admm_step"):
             state = step(state)
+        if callback is not None:
+            callback(state)
     return state
+
+
+def contact_analysis_stepwise(
+    prob: AdmmProblem,
+    modes: tuple[str, ...],
+    max_iter: int = ADMM_MAX_ITER,
+    callback=None,
+    device="cuda",
+) -> AdmmState:
+    """The JAX package's name for :func:`contact_analysis` with a
+    per-iteration ``callback``."""
+    return contact_analysis(prob, modes, max_iter, device=device,
+                            callback=callback)

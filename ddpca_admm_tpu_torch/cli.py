@@ -3,7 +3,7 @@ package's ``cli.py``).
 
 Replaces the reference's interactive stdin menus (Test.cpp:33-67 and the
 per-example .cpp programs) with argparse subcommands.  Each example runs the
-full pipeline (mesh -> search -> ESTABLISH -> ADMM), writes the
+full pipeline (mesh -> search -> ESTABLISH -> ADMM or LAGRANGE), writes the
 reference-compatible result files (resuNode_/resuElem_/resuDisp_/resuStre_/
 resuCont_*.txt), and prints a JSON summary line with the JAX CLI's keys.
 
@@ -13,12 +13,15 @@ Usage:
   python -m ddpca_admm_tpu_torch.cli beam     [--scale small|full]
   python -m ddpca_admm_tpu_torch.cli cylinder [--scale small|full]
   python -m ddpca_admm_tpu_torch.cli dehw     [--self-locking ...]
+                                             [--apps global|coarse|macro]
   python -m ddpca_admm_tpu_torch.cli boxes    [--levels 0]
+                                             [--lagrange --prec-type 1|2]
+  python -m ddpca_admm_tpu_torch.cli postprocess <outdir>
 
-Every subcommand takes ``--device`` (default ``cuda``: the solve runs on the
-card and the command fails when there is none; ``--device cpu`` runs it on
-the CPU).  Not offered yet: ``dehw --apps`` (eigen analysis),
-``boxes --lagrange`` (the dual-mortar solver) and ``postprocess``.
+Every solving subcommand takes ``--device`` (default ``cuda``: the solve
+runs on the card and the command fails when there is none; ``--device cpu``
+runs it on the CPU).  ``dehw --apps`` (eigen analysis) and ``postprocess``
+(PNG figures, needs matplotlib) are host code.
 """
 
 from __future__ import annotations
@@ -130,6 +133,59 @@ def _solve_and_write(prob, meta, bodies, outdir: str, max_iter: int = 3000,
     }
 
 
+def _apps(args, cfg, bodies, regions) -> dict:
+    """DEHW's APPS eigen-analysis path (SOLVE appsCont <= 0,
+    DEHW.h:2261-2272), host code: the global problem takes the finest
+    level as its "coarse" space, coarse takes doleMcsc, macro runs
+    APPS_MPL on the variant-A coarse operator."""
+    from .admm.eigen import run_apps, run_apps_mpl, write_freq, write_modes
+    from .models.simple import assemble_bodies
+
+    systems = assemble_bodies(bodies, regions)
+    if args.apps == "global":
+        dole = [s.n_levels - 1 for s in systems]
+    else:
+        dole = [cfg.dole] * len(systems)
+    if args.apps == "macro":
+        res = run_apps_mpl(systems, regions, [b.mesh for b in bodies], dole)
+    else:
+        res = run_apps(systems, regions, dole)
+    write_freq(args.outdir, res.vals, res.corr)
+    write_modes(args.outdir, res, bodies)
+    return {
+        "solver": "apps",
+        "frequencies": [float(v) for v in res.vals],
+        "correlations": [float(c) for c in res.corr],
+        "outdir": args.outdir,
+    }
+
+
+def _lagrange(args, meta, bodies) -> dict:
+    """The dual-mortar LAGRANGE solve of the boxes on ``args.device``, with
+    the penalty-free stiffness (MCONTACT.h:2850-2860); writes resuNode_/
+    resuDisp_ per body and resuLagr_ per region."""
+    from .admm.lagrange import solve_lagrange
+    from .models.simple import assemble_bodies
+    from .utils import io as rio
+
+    systems = assemble_bodies(bodies, meta.regions, include_penalty=False)
+    res = solve_lagrange(systems, meta.regions, [b.mesh for b in bodies],
+                         prec_type=args.prec_type, device=args.device)
+    os.makedirs(args.outdir, exist_ok=True)
+    for b, (body, sysm) in enumerate(zip(bodies, systems)):
+        full = sysm.full_displacement(res.u[b])
+        rio.write_mesh(args.outdir, body.mesh, b)
+        rio.write_displacement(args.outdir, full, b)
+    for ri, r in enumerate(meta.regions):
+        rio.write_lagrange(args.outdir, res.lagr[ri], res.status[ri],
+                           res.nm_nodes[ri], float(r.region.fric), ri)
+    return {
+        "solver": "lagrange",
+        "newton_iterations": res.iters,
+        "outdir": args.outdir,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ddpca_admm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -214,14 +270,35 @@ def main(argv=None) -> None:
     p.add_argument("--glob-inho", type=int, default=None)
     p.add_argument("--glob-homo", type=int, default=None)
     p.add_argument("--loca-leve", type=int, default=None)
+    p.add_argument(
+        "--apps", choices=["global", "coarse", "macro"], default=None,
+        help="eigen analysis instead of contact solve (DEHW.cpp:110-121: "
+             "1 = global problem, 2 = global coarse problem; macro = "
+             "APPS_MPL on the variant-A coarse operator, "
+             "MCONTACT.h:2405-2474); writes resuFreq.txt + per-body modes",
+    )
     p.add_argument("--outdir", default="Dehw")
 
-    p = sub.add_parser("boxes", help="two-box contact demo")
+    p = sub.add_parser("boxes", help="two-box contact demo / LAGRANGE check")
+    p.add_argument("--lagrange", action="store_true")
+    p.add_argument(
+        "--prec-type", type=int, choices=[1, 2], default=2,
+        help="LAGRANGE preconditioner: 1=restricted-GMG, 2=Jacobi "
+             "(reference precType menu)",
+    )
     p.add_argument("--levels", type=int, default=0,
                    help="global refinement levels of the two boxes")
     p.add_argument("--outdir", default="Boxes")
 
-    for sp in sub.choices.values():
+    p = sub.add_parser(
+        "postprocess",
+        help="render result files to PNGs (Postprocess.m equivalent)",
+    )
+    p.add_argument("outdir", help="result directory written by a solve run")
+
+    for name, sp in sub.choices.items():
+        if name == "postprocess":
+            continue
         sp.add_argument(
             "--moni", action="store_true",
             help="write resuMoni.txt per-iteration convergence monitors "
@@ -239,6 +316,13 @@ def main(argv=None) -> None:
 
     args = ap.parse_args(argv)
     t0 = time.time()
+
+    if args.cmd == "postprocess":
+        from .utils.postprocess import postprocess
+
+        print(json.dumps({"plots": postprocess(args.outdir)}))
+        return
+
     dev = args.device
     run = dict(moni=args.moni, max_iter=args.max_iter, device=dev)
 
@@ -308,21 +392,30 @@ def main(argv=None) -> None:
             cross_corner=args.cross_corner,
         )
         bodies, regions, info = build_dehw_assembly(cfg)
-        prob, meta = finalize_dehw_problem(bodies, regions, cfg, device=dev)
-        summary = _solve_and_write(prob, meta, bodies, args.outdir, **run)
-        summary["self_locking"] = args.self_locking
-        summary["tape_coef"] = args.tape_coef
-        summary["n_worm"] = info["n_worm"]
-        summary["n_whee"] = info["n_whee"]
-        summary["n_contact_regions"] = sum(
-            1 for k in info["region_kinds"] if k[0] == "contact"
-        )
+        if args.apps:
+            summary = _apps(args, cfg, bodies, regions)
+        else:
+            prob, meta = finalize_dehw_problem(bodies, regions, cfg,
+                                               device=dev)
+            summary = _solve_and_write(prob, meta, bodies, args.outdir,
+                                       **run)
+            summary["self_locking"] = args.self_locking
+            summary["tape_coef"] = args.tape_coef
+            summary["n_worm"] = info["n_worm"]
+            summary["n_whee"] = info["n_whee"]
+            summary["n_contact_regions"] = sum(
+                1 for k in info["region_kinds"] if k[0] == "contact"
+            )
     elif args.cmd == "boxes":
         from .models.simple import stacked_boxes_problem
 
         prob, meta, bodies = stacked_boxes_problem(levels=args.levels,
                                                    device=dev)
-        summary = _solve_and_write(prob, meta, bodies, args.outdir, **run)
+        if args.lagrange:
+            summary = _lagrange(args, meta, bodies)
+        else:
+            summary = _solve_and_write(prob, meta, bodies, args.outdir,
+                                       **run)
 
     summary["total_seconds"] = round(time.time() - t0, 3)
     print(json.dumps(summary))

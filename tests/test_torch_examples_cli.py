@@ -4,7 +4,10 @@ into two directories, the port's with ``--device cpu``.  Every result file
 agrees within 1e-8 of its largest entry (integer files exactly), the JSON
 summaries carry the same keys, and the TORSION twist meets its analytic
 value.  The TORSION solve is held here: its iteration count, displacements
-(resuDisp), z and lambda (resuAula) and tractions (resuCont)."""
+(resuDisp), z and lambda (resuAula) and tractions (resuCont).  So are
+``boxes --lagrange`` (its files), ``dehw --apps coarse`` (its eigenvalues
+and correlations, at the eigsh tolerances) and ``postprocess`` (the
+figures it renders)."""
 
 import contextlib
 import glob
@@ -107,9 +110,13 @@ def test_torsion_cli_twist_meets_analytic(torsion_runs):
     assert abs(ut.mean() / s["analytic_twist"] - 1.0) < 1e-5
 
 
-def test_boxes_cli_files_match_jax(tmp_path_factory):
-    runs = _run_both(tmp_path_factory, ["boxes"])
-    (d_ref, s_ref), (d_port, s_port) = runs["jax"], runs["torch"]
+@pytest.fixture(scope="module")
+def boxes_runs(tmp_path_factory):
+    return _run_both(tmp_path_factory, ["boxes"])
+
+
+def test_boxes_cli_files_match_jax(boxes_runs):
+    (d_ref, s_ref), (d_port, s_port) = boxes_runs["jax"], boxes_runs["torch"]
     _assert_summaries_match(s_port, s_ref)
     assert s_port["converged"]
     _assert_files_match(d_port, d_ref)
@@ -122,11 +129,57 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
         cli.main(["boxes", "--outdir", str(tmp_path)])
 
 
-def test_cli_leaves_out_what_is_not_ported(capsys):
-    """``dehw --apps``, ``boxes --lagrange`` and ``postprocess`` wait for a
-    later slice: the parser does not offer them."""
-    for argv in (["dehw", "--apps", "global"], ["boxes", "--lagrange"],
-                 ["postprocess", "x"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
-    capsys.readouterr()
+def test_boxes_lagrange_cli_files_match_jax(tmp_path_factory):
+    """``boxes --lagrange --prec-type 1 --levels 1``: the dual-mortar solve
+    with restricted-GMG BiCGSTAB, its resuNode_/resuDisp_/resuLagr_ files
+    and its summary."""
+    runs = _run_both(tmp_path_factory, ["boxes", "--lagrange", "--prec-type",
+                                        "1", "--levels", "1"])
+    (d_ref, s_ref), (d_port, s_port) = runs["jax"], runs["torch"]
+    assert s_port.keys() == s_ref.keys()
+    assert s_port["solver"] == s_ref["solver"] == "lagrange"
+    assert s_port["newton_iterations"] == s_ref["newton_iterations"]
+    names = _assert_files_match(d_port, d_ref)
+    assert {"resuLagr_0.txt", "resuDisp_0.txt", "resuDisp_1.txt"} <= \
+        set(names)
+
+
+def test_dehw_apps_cli_matches_jax(tmp_path_factory):
+    """``dehw --apps coarse`` at the small grid (globCoup_1 has more rows
+    than DENSE_EIGH_MAXI, so both take eigsh): resuFreq.txt within the
+    eigsh tolerances of tests/test_torch_apps.py (ARPACK starts from a
+    fresh random vector on each call), distinct eigenvalues, and the same
+    mode files."""
+    from test_torch_apps import EIGSH_MODE_TOL, EIGSH_VAL_TOL
+
+    runs = _run_both(tmp_path_factory, ["dehw", "--apps", "coarse"])
+    (d_ref, s_ref), (d_port, s_port) = runs["jax"], runs["torch"]
+    assert s_port.keys() == s_ref.keys()
+    f_port = np.loadtxt(os.path.join(d_port, "resuFreq.txt"))
+    f_ref = np.loadtxt(os.path.join(d_ref, "resuFreq.txt"))
+    assert f_port.shape == f_ref.shape == (10, 2)
+    assert np.all(np.isfinite(f_port))
+    assert np.all(np.diff(np.abs(f_ref[:, 0])) > 0)
+    assert np.all(np.abs(f_port[:, 0] - f_ref[:, 0])
+                  <= EIGSH_VAL_TOL * np.abs(f_ref[:, 0]))
+    # the correlation's sign follows the eigenvector's
+    assert np.all(np.abs(np.abs(f_port[:, 1]) - np.abs(f_ref[:, 1]))
+                  <= EIGSH_MODE_TOL * max(1.0, np.abs(f_ref[:, 1]).max()))
+    np.testing.assert_allclose(s_port["frequencies"], f_port[:, 0],
+                               rtol=1e-15)
+    assert sorted(os.listdir(d_port)) == sorted(os.listdir(d_ref))
+
+
+def test_postprocess_cli_renders_jax_pngs(boxes_runs, capsys):
+    """``postprocess <outdir>`` on each package's boxes output renders the
+    same figures (displacement, von Mises, contact pressure)."""
+    names = {}
+    for name, main in (("jax", jax_cli.main), ("torch", cli.main)):
+        d = boxes_runs[name][0]
+        capsys.readouterr()
+        main(["postprocess", d])
+        paths = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        names[name] = sorted(os.path.basename(p) for p in paths["plots"])
+        assert all(os.path.getsize(p) > 5000 for p in paths["plots"])
+    assert names["torch"] == names["jax"] == [
+        "contact_pressure.png", "displacement.png", "von_mises.png"]

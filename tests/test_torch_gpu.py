@@ -1,9 +1,10 @@
 """Card-only checks of the port: the CUDA kernel K1 against its plain
 PyTorch version (at the slice's shape and at the edges of its plan and
 tiles), plain ``Dia.mv``'s card branch against its CPU branch, the small
-BLOCK solved on the card against the CPU, and the stacked boxes with
+BLOCK solved on the card against the CPU, the stacked boxes with
 Coulomb friction and with coarse correction variants A and B solved on the
-card against the CPU.
+card against the CPU, and BiCGSTAB, GMRES and the dual-mortar LAGRANGE
+solve on the card against the CPU.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
 
@@ -281,3 +282,65 @@ def test_coarse_variants_card_match_cpu(solver, musc):
     cpu, gpu = _card_and_cpu_states(build, 800)
     assert cpu.converged
     _assert_card_matches_cpu(cpu, gpu)
+
+
+@pytest.mark.parametrize("solver", ["bicgstab", "gmres"])
+def test_krylov_card_matches_cpu(solver):
+    """BiCGSTAB and GMRES with the Jacobi preconditioner on a batch of two
+    random nonsymmetric systems held as an ELL matrix: the same iteration
+    count on the card and the CPU, x within 1e-10 of its largest entry."""
+    _need_card()
+    import scipy.sparse as sp
+
+    from ddpca_admm_tpu_torch.solvers import krylov
+    from ddpca_admm_tpu_torch.sparse.ell import stack_ells
+
+    rng = np.random.default_rng(2)
+    n = 600
+    mats = [(sp.random(n, n, density=0.01, random_state=rng, format="csr")
+             + sp.diags(4.0 + rng.random(n))).tocsr() for _ in range(2)]
+    e = stack_ells(mats)
+    diag = torch.from_numpy(np.stack([m.diagonal() for m in mats]))
+    b = torch.from_numpy(rng.standard_normal((2, n)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ed = type(e)(e.vals.to(dev), e.cols.to(dev), e.n_cols)
+        out[dev] = getattr(krylov, solver)(
+            ed.mv, krylov.jacobi_preconditioner(diag.to(dev)), b.to(dev))
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu.x.is_cuda and cpu.iters == gpu.iters > 0
+    scale = float(cpu.x.abs().max())
+    assert float((gpu.x.cpu() - cpu.x).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.parametrize("prec_type", [1, 2])
+def test_lagrange_boxes_card_matches_cpu(prec_type):
+    """The dual-mortar solve of the refined stacked boxes (Khat above 500
+    rows: BiCGSTAB on the device, under the restricted-GMG V-cycle or
+    Jacobi): the same Newton passes and states on the card and the CPU,
+    BiCGSTAB iterations within 2 per pass, u and lambda within 1e-8 of
+    their largest entries, and no K1 launch (every level is ELL)."""
+    _need_card()
+    from ddpca_admm_tpu_torch.admm.lagrange import solve_lagrange
+    from ddpca_admm_tpu_torch.models import simple as S
+
+    _, meta, bodies = S.stacked_boxes_problem(div_bot=3, div_top=2, levels=1,
+                                              device="cpu")
+    systems = S.assemble_bodies(bodies, meta.regions, include_penalty=False)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        before = K.LAUNCHES
+        res[dev] = solve_lagrange(systems, meta.regions,
+                                  [b.mesh for b in bodies],
+                                  prec_type=prec_type, device=dev)
+        assert K.LAUNCHES == before
+    cpu, gpu = res["cpu"], res["cuda"]
+    assert cpu.iters == gpu.iters
+    assert all(p["krylov_iters"] is not None for p in gpu.passes)
+    assert all(abs(a["krylov_iters"] - b["krylov_iters"]) <= 2
+               for a, b in zip(cpu.passes, gpu.passes, strict=True))
+    for a, b in zip(cpu.status, gpu.status, strict=True):
+        np.testing.assert_array_equal(a, b)
+    for a, b in ((cpu.u, gpu.u), (cpu.lagr, gpu.lagr)):
+        a, b = np.concatenate(a), np.concatenate(b)
+        assert float(np.abs(a - b).max()) <= 1e-8 * float(np.abs(a).max())

@@ -1,8 +1,10 @@
 """The port imports neither JAX nor the JAX package: in a fresh interpreter
 whose import system refuses ``jax``, ``jaxlib`` and ``ddpca_admm_tpu`` (and
 its submodules, not ``ddpca_admm_tpu_torch``), every module of the port
-imports, the small BLOCK builds and solves on the CPU, and the port's
-command line runs TORSION at its small scale on the CPU."""
+imports (the LAGRANGE, APPS, checkpoint and postprocess modules among
+them), the small BLOCK builds and solves on the CPU, and the port's command
+line runs TORSION at its small scale and the boxes' LAGRANGE solve on the
+CPU."""
 
 import json
 import os
@@ -70,10 +72,18 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
     cli.main(["torsion", "--scale", "small", "--device", "cpu",
               "--outdir", d])
 torsion = json.loads(buf.getvalue().strip().splitlines()[-1])
+# the dual-mortar LAGRANGE solve through the CLI: BiCGSTAB under the
+# restricted-GMG V-cycle
+buf = io.StringIO()
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+    cli.main(["boxes", "--lagrange", "--prec-type", "1", "--levels", "1",
+              "--device", "cpu", "--outdir", d])
+lagrange = json.loads(buf.getvalue().strip().splitlines()[-1])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 print(json.dumps({"modules": mods, "it": st.it, "converged": st.converged,
                   "patch_err_rel": err / (abs(p) * sum(cfg.leng) / E),
-                  "torsion": torsion, "loaded": loaded}))
+                  "torsion": torsion, "lagrange": lagrange,
+                  "loaded": loaded}))
 '''
 
 
@@ -97,6 +107,11 @@ def test_port_runs_without_jax():
         "ddpca_admm_tpu_torch.models.cylinder",
         "ddpca_admm_tpu_torch.models.dehw_surf",
         "ddpca_admm_tpu_torch.models.dehw_assembly",
+        "ddpca_admm_tpu_torch.solvers.krylov",
+        "ddpca_admm_tpu_torch.admm.lagrange",
+        "ddpca_admm_tpu_torch.admm.eigen",
+        "ddpca_admm_tpu_torch.utils.checkpoint",
+        "ddpca_admm_tpu_torch.utils.postprocess",
     }
     assert expected <= set(out["modules"])
     assert out["converged"] and out["it"] == 3
@@ -105,6 +120,9 @@ def test_port_runs_without_jax():
     # the CLI's TORSION run (81 iterations, as the JAX CLI's)
     assert out["torsion"]["converged"]
     assert out["torsion"]["iterations"] == 81
+    # the LAGRANGE patch test changes no contact state: one Newton pass
+    assert out["lagrange"]["solver"] == "lagrange"
+    assert out["lagrange"]["newton_iterations"] == 0
 
 
 def test_refusing_hook_refuses():
