@@ -25,7 +25,19 @@ Phases, one line each with its ``elapsed_s``:
      problem and timed there warm and cold, then solved on the card through ``contact_analysis``: it must
      converge in 19-21 ADMM iterations through K1 and pass the patch test
      (u_z = p z / E);
-  5. examples — TORSION, BEAM, CYLINDER (the 4-section stack and the
+  5. sharding — the body axis split over ranks that share the card
+     (``parallel/sharding.py``, gloo; NCCL where every rank has a card):
+     ``graft_entry.dryrun_multichip`` at 2 and 4 ranks (two chain
+     configurations, each against a one-card solve), then the slice's
+     BLOCK problem over 2 ranks, each rank holding K1 against its plain
+     version on every PlaneDia of its slice before the solve: the slice's
+     ``it`` and ``inner_iters``, u within 1e-9 of max|u| of the one-card
+     solve, the patch test, and K1 launched on every rank.  One line per
+     run with its ranks' devices, bodies, setup and solve seconds, K1
+     launches and peak memory; the BLOCK line also gives the bytes of the
+     one-card problem and of each rank's by placement (``problem_bytes``)
+     and each rank's bytes on the card before its solve;
+  6. examples — TORSION, BEAM, CYLINDER (the 4-section stack and the
      CYLINDER_1 cross-corner variant) and DEHW built by the port's host
      code and solved through the CLI's solve: at the JAX CLI's small
      configuration on the card against the CPU (the CPU solves run in
@@ -35,13 +47,13 @@ Phases, one line each with its ``elapsed_s``:
      and Hertz peak, DEHW's monitors and contact pressures after a fixed
      iteration count).  One line per solve, with its cuts from the
      reference's settings, K1 launches and peak device memory;
-  6. lagrange — the dual-mortar LAGRANGE solver: the stacked boxes at one
+  7. lagrange — the dual-mortar LAGRANGE solver: the stacked boxes at one
      refinement level (BiCGSTAB on the device) on the card against the
      CPU, at both preconditioners and with Coulomb friction, then BLOCK
      at glob_leve=2 without domain decomposition (163,125 DOF) on the
      card at both preconditioners, held to the patch test and the
      expected contact states; no K1 launch (every operator is ELL);
-  7. apps    — DEHW's APPS eigen-analysis (``dehw --apps coarse``) through
+  8. apps    — DEHW's APPS eigen-analysis (``dehw --apps coarse``) through
      the port's command line, host code, at the small grid.
 
 Then the ``kernels`` JSON line, the card's name and power limit, and as the
@@ -510,19 +522,7 @@ def phase_slice(torch, np, args):
     peak = torch.cuda.max_memory_allocated()
 
     u = st.u.cpu().numpy()
-    check(u.shape == (len(meta.systems), meta.n_pad),
-          f"slice: u has shape {u.shape}")
-    check(bool(np.isfinite(u).all()), "slice: u is not finite")
-    # the patch test (examples/BLOCK.cpp:43-49): u_z = p z / E everywhere
-    E, p = cfg.e_mod, cfg.pressure
-    scale = abs(p) * sum(cfg.leng) / E
-    err = max(
-        float(np.abs(
-            s.full_displacement(u[b, : s.n_dof])[2::3]
-            - p * body.mesh.coords[:, 2] / E
-        ).max())
-        for b, (body, s) in enumerate(zip(model.bodies, meta.systems))
-    )
+    err, scale = patch_error(np, cfg, model, meta, u, "slice")
     emit("slice", setup_s=setup_s, dof=n_dof, bodies=len(meta.systems),
          n_pad=meta.n_pad, coarse_ddmg=prob.coarse[0].mg is not None,
          plane_dia_operators=ops, it=st.it, converged=st.converged,
@@ -533,6 +533,190 @@ def phase_slice(torch, np, args):
     check(19 <= st.it <= 21, f"slice: it = {st.it}, not in 19-21")
     check(launches > 0, "slice: K1 was not launched on the main path")
     check(err <= 1e-4 * scale, f"slice: patch test error {err / scale}")
+    return dict(launches=launches, prob=prob, meta=meta, model=model,
+                cfg=cfg, state=st, u=u, solve_s=solve_s, peak=peak)
+
+
+def patch_error(np, cfg, model, meta, u, label):
+    """The BLOCK patch test (examples/BLOCK.cpp:43-49), u_z = p z / E
+    everywhere: the largest error and its scale |p| H / E."""
+    check(u.shape == (len(meta.systems), meta.n_pad),
+          f"{label}: u has shape {u.shape}")
+    check(bool(np.isfinite(u).all()), f"{label}: u is not finite")
+    E, p = cfg.e_mod, cfg.pressure
+    scale = abs(p) * sum(cfg.leng) / E
+    err = max(
+        float(np.abs(
+            s.full_displacement(u[b, : s.n_dof])[2::3]
+            - p * body.mesh.coords[:, 2] / E
+        ).max())
+        for b, (body, s) in enumerate(zip(model.bodies, meta.systems))
+    )
+    return err, scale
+
+
+# ------------------------------------------------------------- sharding
+
+# seconds a sharded solve may take before the launcher kills its ranks
+SHARD_TIMEOUT = 300.0
+SHARD_WORLD = 2
+
+
+def problem_bytes(torch, prob) -> dict:
+    """Bytes of a problem's tensors by placement over ranks: the
+    body-batched fields and the hierarchy (both sliced), the PlaneDia class
+    tables of the hierarchy (whole on every rank), the region groups and
+    the coarse correction (replicated).  A storage that two fields share
+    counts once, under the first."""
+    import numpy as np
+
+    seen, sizes = set(), {}
+
+    def add(key, t):
+        store = t.untyped_storage()
+        if store.data_ptr() not in seen:
+            seen.add(store.data_ptr())
+            sizes[key] = sizes.get(key, 0) + store.nbytes()
+
+    def walk(key, obj):
+        if isinstance(obj, torch.Tensor):
+            add(key, obj)
+        elif isinstance(obj, (tuple, list)):
+            for v in obj:
+                walk(key, v)
+        elif type(obj).__name__ == "PlaneDia":
+            add("mg_class_tables", obj.vals)
+            for k, v in vars(obj).items():
+                if k != "vals":
+                    walk(key, v)
+        elif obj is not None and not isinstance(
+                obj, (bool, int, float, str, np.generic, np.ndarray,
+                      torch.dtype)):
+            for v in vars(obj).values():
+                walk(key, v)
+
+    for name in ("cons_forc", "gram", "gram_lin", "gram_const", "u_mask"):
+        walk("body_fields", getattr(prob, name))
+    walk("mg_sliced", prob.mg)
+    walk("groups", prob.groups)
+    walk("coarse", prob.coarse)
+    sizes["total"] = sum(sizes.values())
+    return sizes
+
+
+def k1_rank_hook(prob, shard):
+    """In every rank of the sharded BLOCK solve, before it: K1 against its
+    plain version on each PlaneDia of the rank's slice of the problem
+    (these launches are not counted: the rank zeroes the count after), the
+    bytes of the rank's problem by placement, and the bytes allocated on
+    the card once the rank's problem and state are loaded."""
+    import torch
+
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+
+    resident = torch.cuda.memory_allocated(shard.device)
+    gen = torch.Generator(device=shard.device)
+    gen.manual_seed(1000 + shard.rank)
+    rows = []
+    for label, pd in plane_dias(prob):
+        x = torch.randn((pd.kz.shape[0], pd.n_rows), generator=gen,
+                        device=shard.device, dtype=pd.dtype)
+        err, scale, rel = run_k1_case(torch, K, pd, x,
+                                      f"rank {shard.rank} {label}")
+        rows.append(dict(op=label, kz=list(pd.kz.shape), max_abs_err=err,
+                         max_abs_y=scale, tol_rel=rel))
+    return dict(k1=rows, problem_bytes=problem_bytes(torch, prob),
+                resident_bytes=resident)
+
+
+def rank_lines(ranks, mesh, backend, prepare_s, joined_s) -> dict:
+    """The figures of a sharded run, one list entry per rank; ``timeline``:
+    seconds from the spawn to each stage of a rank (``_rank_solve``)."""
+    return dict(
+        world=len(ranks), mesh=list(mesh), backend=backend,
+        prepare_s=prepare_s, joined_s=joined_s,
+        devices=[r["device"] for r in ranks],
+        device_names=sorted({r["device_name"] for r in ranks}),
+        bodies_per_rank=[r["bodies"][1] - r["bodies"][0] for r in ranks],
+        setup_s=[r["setup_s"] for r in ranks],
+        solve_s=[r["solve_s"] for r in ranks],
+        k1_launches=[r["k1_launches"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        timeline=[r["timeline"] for r in ranks],
+    )
+
+
+def phase_sharding(torch, np, sl):
+    """The body axis over ranks sharing the card: the dry run at 2 and 4
+    ranks, then BLOCK glob_leve=2 over SHARD_WORLD ranks from the slice
+    phase's problem, against the slice's one-card solve."""
+    from ddpca_admm_tpu_torch import graft_entry
+    from ddpca_admm_tpu_torch.parallel.sharding import solve_sharded
+
+    launches = {}
+    for n in (2, 4):
+        t = time.perf_counter()
+        rows = graft_entry.dryrun_multichip(n, timeout=SHARD_TIMEOUT)
+        for row in rows:
+            emit("sharding", run=f"dryrun_multichip({n})",
+                 config=row["config"], it=row["it"],
+                 inner_iters=row["inner_iters"],
+                 inner_iters_one_card=row["inner_iters_single"],
+                 solve_s_one_card=row["solve_s_single"],
+                 max_rel_du=row["max_rel_du"],
+                 **rank_lines(row["ranks"], row["mesh"], row["backend"],
+                              row["prepare_s"], row["joined_s"]))
+            check(all(r["device"].startswith("cuda") for r in row["ranks"]),
+                  f"dryrun_multichip({n}): a rank did not run on the card")
+        launches[f"dryrun_multichip({n})"] = sum(
+            r["k1_launches"] for row in rows for r in row["ranks"])
+        emit("sharding", run=f"dryrun_multichip({n})", runs=len(rows),
+             wall_s=time.perf_counter() - t)
+
+    meta, st = sl["meta"], sl["state"]
+    t = time.perf_counter()
+    run = solve_sharded(sl["prob"], tuple(meta.group_modes), SHARD_WORLD,
+                        max_iter=60, device="cuda", timeout=SHARD_TIMEOUT,
+                        rank_hook=k1_rank_hook)
+    wall_s = time.perf_counter() - t
+    sh = run.state
+    u = sh.u.numpy()
+    scale_u = float(np.abs(sl["u"]).max())
+    du = float(np.abs(u - sl["u"]).max())
+    err, scale = patch_error(np, sl["cfg"], sl["model"], meta, u, "sharding")
+    lines = rank_lines(run.ranks, run.mesh_shape, run.backend,
+                       run.prepare_s, run.joined_s)
+    emit("sharding", run=f"block glob_leve={GLOB_LEVE}", it=sh.it,
+         it_one_card=st.it, inner_iters=sh.inner_iters,
+         inner_iters_one_card=st.inner_iters, converged=sh.converged,
+         max_abs_du=du, max_abs_u=scale_u, patch_err_rel=err / scale,
+         solve_s_one_card=sl["solve_s"], wall_s=wall_s,
+         k1_checked=[len(r["hook"]["k1"]) for r in run.ranks],
+         k1_max_rel_err=max(c["max_abs_err"] / c["max_abs_y"]
+                            for r in run.ranks for c in r["hook"]["k1"]),
+         problem_bytes_one_card=problem_bytes(torch, sl["prob"]),
+         max_memory_allocated_one_card=sl["peak"],
+         problem_bytes=[r["hook"]["problem_bytes"] for r in run.ranks],
+         resident_bytes=[r["hook"]["resident_bytes"] for r in run.ranks],
+         **lines)
+    check(sh.converged, f"sharding: no convergence in {sh.it} iterations")
+    check(sh.it == st.it, f"sharding: it {sh.it} over {SHARD_WORLD} ranks, "
+          f"{st.it} on one card")
+    check(sh.inner_iters == st.inner_iters,
+          f"sharding: inner_iters {sh.inner_iters} over {SHARD_WORLD} ranks, "
+          f"{st.inner_iters} on one card")
+    check(du <= 1e-9 * scale_u,
+          f"sharding: max|du| = {du} > 1e-9 * {scale_u} against one card")
+    check(err <= 1e-4 * scale, f"sharding: patch test error {err / scale}")
+    for r in run.ranks:
+        check(r["device"].startswith("cuda"),
+              f"sharding: rank {r['rank']} ran on {r['device']}")
+        check(len(r["hook"]["k1"]) > 0,
+              f"sharding: rank {r['rank']} holds no PlaneDia to check K1 on")
+        check(r["k1_launches"] > 0,
+              f"sharding: rank {r['rank']} did not launch K1 in the solve")
+    launches[f"block glob_leve={GLOB_LEVE}, {SHARD_WORLD} ranks"] = sum(
+        lines["k1_launches"])
     return launches
 
 
@@ -1114,7 +1298,11 @@ def main() -> int:
                 for name in EXAMPLES}
         rows = phase_kernels(torch, args)
         phase_small(torch, np)
-        launches = phase_slice(torch, np, args)
+        sl = phase_slice(torch, np, args)
+        launches = sl["launches"]
+        sharding_launches = phase_sharding(torch, np, sl)
+        del sl
+        torch.cuda.empty_cache()
         example_launches = phase_examples(torch, np, refs)
     finally:
         pool.terminate()
@@ -1130,7 +1318,8 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": launches,
         "launches_by_path": {"block glob_leve=2": launches,
-                             **example_launches, **lagrange_launches},
+                             **sharding_launches, **example_launches,
+                             **lagrange_launches},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
         "ms_cold": main_row["ms_cold"],

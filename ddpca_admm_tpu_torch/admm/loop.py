@@ -102,9 +102,25 @@ INNER_MAXITER = 500
 MASS_MAXITER = 200
 
 
-def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
-    """Build the single-iteration function ``step(state) -> state``."""
+def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...], shard=None,
+                   inner_maxiter: int = INNER_MAXITER):
+    """Build the single-iteration function ``step(state) -> state``.
+
+    With a ``shard`` (``parallel/sharding.py::Shard``), ``prob`` and
+    ``state.u`` hold the rank's bodies [shard.lo, shard.hi) and the rest is
+    replicated: the body solve runs on the local bodies, and the step
+    all-gathers u where the coarse correction, the region groups and the
+    monitors read it.  Gathers, not sums over ranks, keep every sum in its
+    single-device order.  The inner iteration count and the flags that end
+    the loop (``converged``, the coarse freeze) are reduced over ranks, so
+    every rank takes the same decisions.  Without one the step runs a
+    one-device ``Shard``, whose collectives are the identity."""
+    from ..parallel.sharding import Shard
+
     mg = prob.mg
+    if shard is None:
+        shard = Shard(prob.cons_forc.shape[0], prob.cons_forc.device)
+    gather, rows = shard.gather, slice(shard.lo, shard.hi)
     dtype = prob.cons_forc.dtype
     tiny = float(torch.finfo(dtype).tiny)
     crit_disp = floor_crit(ADMM_CRIT_DISP, dtype)
@@ -120,7 +136,7 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
         # V-cycle preconditioner in float32 (see solvers/mg.py)
         with record_function("body pcg"):
             res = pcg(mg.A_top.mv, lambda r: _vcycle(mg, r), rhs,
-                      x0=x0, rtol=inner_rtol, maxiter=INNER_MAXITER)
+                      x0=x0, rtol=inner_rtol, maxiter=inner_maxiter)
         return res.x, res.iters
 
     def apply_coarse(co, state, u, x_prev):
@@ -135,9 +151,9 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
                 gf = gf.index_add(0, ti.reshape(-1), tz.mv(gs.z).reshape(-1))
         if isinstance(co.tranD, ComposedTranD):
             # F^T A u through the hierarchy (A_top + Pt chain)
-            gf = gf + co.tranD.apply(mg, u)
+            gf = gf + co.tranD.apply(mg, u, gather)
         else:
-            gf = gf + co.tranD.mv(u.reshape(-1))
+            gf = gf + co.tranD.mv(gather(u).reshape(-1))
         if co.mg is not None:
             # DOUBLE_M(_1): MG-preconditioned CG on the coarse operator's
             # own DD hierarchy (MCONTACT.h:1538-1670), warm-started from the
@@ -156,8 +172,9 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
             sol = co.inv @ gf
             sol = sol + co.inv @ (gf - co.mat @ sol)
         if isinstance(co.accu, ComposedAccu):
-            du = co.accu.apply(mg, sol)   # P chain from dole
+            du = co.accu.apply(mg, sol, rows)   # P chain from dole
         else:
+            # a sharded accu holds the rank's rows only
             du = co.accu.mv(sol).reshape(u.shape)
         return u + du, sol
 
@@ -166,14 +183,22 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
         if state.converged:
             return state
         # ---------------------------------------------------- x-update rhs
-        rhs_flat = prob.cons_forc.reshape(-1)
+        # the replicated scatter over the group state runs on the full
+        # (B, n) layout, with the rank's own rows of cons_forc in place
+        # (the same sums as on one device); the rank keeps its rows
+        rhs_flat = torch.nn.functional.pad(
+            prob.cons_forc, (0, 0, shard.lo, shard.n_bodies - shard.hi)
+        ).reshape(-1)
         for g, gs in zip(prob.groups, state.groups):
             # row-compacted TtP/Tt: scatter each (region, side)'s body-DOF
             # contributions into the stacked rhs (offsets baked into t_idx)
             contrib = g.TtP.mv(gs.z) - g.Tt.mv(gs.lam)       # (R,2,r)
             rhs_flat = rhs_flat.index_add(0, g.t_idx.reshape(-1),
                                           contrib.reshape(-1))
-        rhs = rhs_flat.reshape(prob.cons_forc.shape) * prob.u_mask
+        rhs = rhs_flat.reshape((-1,) + tuple(prob.cons_forc.shape[1:]))
+        rhs = rhs[rows] * prob.u_mask
+        # the body PCG runs on the local bodies alone: its lanes are
+        # independent, so a rank's loop ends when its own lanes end
         u, inner_it = body_solve(rhs, state.u)
 
         # ------------------ coarse-space corrections (MULTISCALE variants A
@@ -197,11 +222,13 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
             + 2.0 * (prob.gram_lin * us).sum(-1) / s_u[..., 0]
             + prob.gram_const / s_u[..., 0] ** 2
         )
-        moni_vals = [du2]
-        moni_allow = [u2]
+        both = gather(torch.stack([du2, u2], dim=-1))
+        moni_vals = [both[:, 0]]
+        moni_allow = [both[:, 1]]
+        u_all = gather(u)
 
         for g, gs, mode in zip(prob.groups, state.groups, modes):
-            u_rs = u[g.body_idx]                              # (R,2,n)
+            u_rs = u_all[g.body_idx]                          # (R,2,n)
             bpu = g.Bp.mv(u_rs) + g.bp_const                  # (R,2,m)
             # ------------------------------------------------------ gamma
             lam_ip = g.L.mv(gs.lam)                           # (R,2,i)
@@ -262,6 +289,12 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...]):
         mx, mn = moni.amax(dim=0), moni.amin(dim=0)
         medi = 0.5 * (mx + mn)
         osc_ok = bool(((mx - mn) <= ADMM_CRIT_OSCI * medi).all())
+        # the replicated group state may differ in its last bits from rank
+        # to rank (index_add is atomic on the card): a flag decided on one
+        # rank alone would leave another waiting in a collective
+        inner_it, not_conv, not_osc = shard.max_ints(
+            [inner_it, int(not converged), int(not osc_ok)])
+        converged, osc_ok = not not_conv, not not_osc
         mult_frozen = state.mult_frozen or (
             state.it >= ADMM_MONI_CYCLE and osc_ok
         )
@@ -317,10 +350,11 @@ def init_state(prob: AdmmProblem, hist_rows: int = 1) -> AdmmState:
 
 
 def admm_step(prob: AdmmProblem, state: AdmmState,
-              modes: tuple[str, ...]) -> AdmmState:
+              modes: tuple[str, ...],
+              inner_maxiter: int = INNER_MAXITER) -> AdmmState:
     """One ADMM iteration of ``prob`` from ``state`` (both on one device).
     A no-op once ``state.converged`` is set (see ``make_admm_step``)."""
-    return make_admm_step(prob, modes)(state)
+    return make_admm_step(prob, modes, inner_maxiter=inner_maxiter)(state)
 
 
 def contact_analysis(
@@ -330,20 +364,34 @@ def contact_analysis(
     record_moni: bool = False,
     device="cuda",
     callback=None,
+    state0: AdmmState | None = None,
+    inner_maxiter: int = INNER_MAXITER,
+    shard=None,
 ) -> AdmmState:
     """Run the ADMM loop to convergence (or ``max_iter``) on ``device``
     (default the card; the problem is moved there if it lies elsewhere).
 
     ``record_moni=True`` sizes the history buffer to ``max_iter`` rows so
     every iteration's monitor ratios survive the loop (resuMoni.txt parity,
-    MCONTACT.h:2742); rows past convergence stay +inf.  ``callback(state)``,
-    if given, runs after every iteration (monitor output, checkpoints).  The JAX package's
+    MCONTACT.h:2742); rows past convergence stay +inf.  ``state0`` starts
+    the loop from a given state (a rank's share of one, or one that
+    ``utils/checkpoint.py::load_state`` read) instead of the zero state;
+    ``inner_maxiter`` caps the body PCG.  ``shard`` runs the rank's share of
+    a problem split by ``parallel/sharding.py`` (see ``make_admm_step``),
+    from ``state0`` = the rank's share of a state (``shard_state``).
+    ``callback(state)``, if given, runs after every iteration (monitor
+    output, checkpoints).  The JAX package's
     ``chunk`` dispatch is not carried over: it works around a
     remote-attached TPU, and this loop already checks convergence on the
     host after every iteration."""
-    prob = to_device(prob, resolve_device(device))
-    state = init_state(prob, hist_rows=max_iter if record_moni else 1)
-    step = make_admm_step(prob, modes)
+    dev = resolve_device(device)
+    prob = to_device(prob, dev)
+    if state0 is None:
+        state = init_state(prob, hist_rows=max_iter if record_moni else 1)
+    else:
+        state = to_device(state0, dev)
+    step = make_admm_step(prob, modes, shard=shard,
+                          inner_maxiter=inner_maxiter)
     while state.it < max_iter and not state.converged:
         with record_function("admm_step"):
             state = step(state)

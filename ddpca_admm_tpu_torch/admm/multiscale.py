@@ -104,10 +104,15 @@ class ComposedTranD:
         self.mask = mask      # (Nc_pad,) 0/1 in solve dtype
         self.level = int(level)
 
-    def apply(self, mg: "MgHierarchy", u: torch.Tensor) -> torch.Tensor:
+    def apply(self, mg: "MgHierarchy", u: torch.Tensor,
+              gather) -> torch.Tensor:
+        """``gather`` all-gathers body-batched rows over ranks (the
+        identity on one device): the A_top and Pt chain runs on the rank's
+        bodies, ``take`` and the region part on the gathered vectors."""
         y = mg.A_top.mv(u)                                # (B, n_pad)
         for l in range(len(mg.levels) - 1, self.level, -1):
             y = mg.levels[l].Pt.mv(y)
+        y, u = gather(y), gather(u)
         part_a = -torch.take(y.reshape(-1), self.idx) * self.mask
         return part_a + self.reg.mv(u.reshape(-1))
 
@@ -124,11 +129,14 @@ class ComposedAccu:
         self.n_dole_pad = int(n_dole_pad)
         self.n_bodies = int(n_bodies)
 
-    def apply(self, mg: "MgHierarchy", sol: torch.Tensor) -> torch.Tensor:
+    def apply(self, mg: "MgHierarchy", sol: torch.Tensor,
+              rows: slice) -> torch.Tensor:
+        """``rows`` keeps a rank's bodies of the scattered level-dole
+        layout before the P chain (every body on one device)."""
         y = torch.zeros((self.n_bodies * self.n_dole_pad,), dtype=sol.dtype,
                         device=sol.device)
         y = y.index_add(0, self.idx, sol * self.mask)
-        y = y.reshape(self.n_bodies, self.n_dole_pad)
+        y = y.reshape(self.n_bodies, self.n_dole_pad)[rows]
         for l in range(self.level + 1, len(mg.levels)):
             y = mg.levels[l].P.mv(y)
         return y                                          # (B, n_pad)

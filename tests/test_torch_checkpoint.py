@@ -83,3 +83,30 @@ def test_load_state_refuses_cuda_without_a_card(boxes, tmp_path):
     save_state(path, init_state(prob))
     with pytest.raises(RuntimeError, match="cuda"):
         load_state(path)
+
+
+def test_resume_from_checkpoint_via_state0(boxes, tmp_path):
+    """A solve resumed through ``contact_analysis(state0=...)`` from a
+    checkpoint saved at iteration k ends where the uninterrupted solve
+    ends: the same iteration count and u."""
+    prob, modes = boxes
+    full = contact_analysis(prob, modes, device="cpu")
+    k = 3
+    assert full.converged and full.it > k
+    path = str(tmp_path / "state.pt")
+    save_state(path, contact_analysis(prob, modes, max_iter=k, device="cpu"))
+    resumed = contact_analysis(prob, modes, device="cpu",
+                               state0=load_state(path, device="cpu"))
+    assert resumed.converged
+    assert resumed.it == full.it
+    assert resumed.inner_iters == full.inner_iters
+    assert torch.equal(resumed.u, full.u)
+
+
+def test_inner_maxiter_caps_the_body_pcg(boxes):
+    prob, modes = boxes
+    st = contact_analysis(prob, modes, max_iter=2, inner_maxiter=2,
+                          device="cpu")
+    assert st.it == 2 and st.inner_iters <= 4
+    assert contact_analysis(prob, modes, max_iter=2,
+                            device="cpu").inner_iters > 4

@@ -4,7 +4,8 @@ tiles), plain ``Dia.mv``'s card branch against its CPU branch, the small
 BLOCK solved on the card against the CPU, the stacked boxes with
 Coulomb friction and with coarse correction variants A and B solved on the
 card against the CPU, and BiCGSTAB, GMRES and the dual-mortar LAGRANGE
-solve on the card against the CPU.
+solve on the card against the CPU, and the body axis split over two
+ranks sharing the card against one card.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
 
@@ -344,3 +345,49 @@ def test_lagrange_boxes_card_matches_cpu(prec_type):
     for a, b in ((cpu.u, gpu.u), (cpu.lagr, gpu.lagr)):
         a, b = np.concatenate(a), np.concatenate(b)
         assert float(np.abs(a - b).max()) <= 1e-8 * float(np.abs(a).max())
+
+
+def _chain(case, device):
+    import ddpca_admm_tpu_torch.sparse.bell as bell
+    from ddpca_admm_tpu_torch.models.simple import chain_problem
+
+    if case == "chain8":
+        return chain_problem(n_bodies=8, div=2, levels=0, device=device)
+    saved = bell.BELL_MAX_BYTES
+    bell.BELL_MAX_BYTES = 0
+    try:
+        return chain_problem(n_bodies=4, div=2, levels=1, fric_mid=0.2,
+                             structured=True, device=device)
+    finally:
+        bell.BELL_MAX_BYTES = saved
+
+
+@pytest.mark.parametrize("case", ["chain8", "friction_structured"])
+def test_two_ranks_on_the_card_match_one_card(case):
+    """The body axis over 2 ranks sharing the card (gloo) against the solve
+    on one card: the same iteration counts, u, z and lambda within 1e-9 of
+    their largest entries; each rank ran on the card."""
+    _need_card()
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.parallel.sharding import solve_sharded
+    from ddpca_admm_tpu_torch.solvers.mg import BatchBlocks
+
+    prob, meta, _ = _chain(case, "cuda")
+    modes = tuple(meta.group_modes)
+    one = contact_analysis(prob, modes, max_iter=600, device="cuda")
+    run = solve_sharded(prob, modes, 2, max_iter=600, device="cuda",
+                        timeout=300.0)
+    st = run.state
+    assert one.converged and st.converged
+    assert st.it == one.it and st.inner_iters == one.inner_iters
+    pairs = [(one.u, st.u)]
+    for ga, gb in zip(one.groups, st.groups):
+        pairs += [(ga.z, gb.z), (ga.lam, gb.lam)]
+    for a, b in pairs:
+        scale = float(a.abs().max())
+        assert float((b - a.cpu()).abs().max()) <= 1e-9 * scale
+    expect = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    assert run.backend == expect
+    assert all(r["device"].startswith("cuda") for r in run.ranks)
+    if case != "chain8":
+        assert isinstance(prob.mg.levels[-1].A, BatchBlocks)

@@ -1,10 +1,10 @@
 """The port imports neither JAX nor the JAX package: in a fresh interpreter
 whose import system refuses ``jax``, ``jaxlib`` and ``ddpca_admm_tpu`` (and
 its submodules, not ``ddpca_admm_tpu_torch``), every module of the port
-imports (the LAGRANGE, APPS, checkpoint and postprocess modules among
-them), the small BLOCK builds and solves on the CPU, and the port's command
-line runs TORSION at its small scale and the boxes' LAGRANGE solve on the
-CPU."""
+imports (the LAGRANGE, APPS, checkpoint, postprocess and sharding modules
+and the entry points among them), the small BLOCK builds and solves on the
+CPU, and the port's command line runs TORSION at its small scale and the
+boxes' LAGRANGE solve on the CPU."""
 
 import json
 import os
@@ -112,6 +112,8 @@ def test_port_runs_without_jax():
         "ddpca_admm_tpu_torch.admm.eigen",
         "ddpca_admm_tpu_torch.utils.checkpoint",
         "ddpca_admm_tpu_torch.utils.postprocess",
+        "ddpca_admm_tpu_torch.parallel.sharding",
+        "ddpca_admm_tpu_torch.graft_entry",
     }
     assert expected <= set(out["modules"])
     assert out["converged"] and out["it"] == 3
