@@ -22,7 +22,12 @@ from ..solvers.mg import (
 from ..sparse.dia import Dia, PlaneDia
 from ..sparse.ell import Ell
 from ..utils.device import resolve_device, to_device
-from .multiscale import CoarseCorrection, ComposedAccu, ComposedTranD
+from .multiscale import (
+    CoarseCorrection,
+    ComposedAccu,
+    ComposedTranD,
+    with_chains,
+)
 from .problem import AdmmProblem, RegionGroup
 
 # index arrays the port keeps as int64 (gather/scatter/take indices)
@@ -62,12 +67,13 @@ def _conv(obj, index: bool = False):
     if name == "StructuredRest":
         return StructuredRest(_conv(obj.St), obj.fshape, obj.cshape,
                               obj.strides, obj.n_c_pad)
+    # the chains come from the converted hierarchy (problem_from_arrays)
     if name == "ComposedTranD":
         return ComposedTranD(_conv(obj.reg), _t(obj.idx, True),
-                             _t(obj.mask), obj.level)
+                             _t(obj.mask), obj.level, chain=())
     if name == "ComposedAccu":
         return ComposedAccu(_t(obj.idx, True), _t(obj.mask), obj.level,
-                            obj.n_dole_pad, obj.n_bodies)
+                            obj.n_dole_pad, obj.n_bodies, chain=())
     if name == "BlockEll":
         raise TypeError("problem_from_arrays: BlockEll operators are the "
                         "JAX package's TPU layout; build the JAX problem on "
@@ -87,4 +93,8 @@ def _conv(obj, index: bool = False):
 def problem_from_arrays(prob_np, device="cuda") -> AdmmProblem:
     """The port's AdmmProblem on ``device`` from the JAX package's problem
     with numpy leaves."""
-    return to_device(_conv(prob_np), resolve_device(device))
+    prob = _conv(prob_np)
+    if prob.coarse:
+        prob = prob._replace(coarse=tuple(with_chains(co, prob.mg)
+                                          for co in prob.coarse))
+    return to_device(prob, resolve_device(device))

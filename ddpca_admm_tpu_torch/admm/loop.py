@@ -172,7 +172,7 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...], shard=None,
             sol = co.inv @ gf
             sol = sol + co.inv @ (gf - co.mat @ sol)
         if isinstance(co.accu, ComposedAccu):
-            du = co.accu.apply(mg, sol, rows)   # P chain from dole
+            du = co.accu.apply(sol, rows)   # P chain from dole
         else:
             # a sharded accu holds the rank's rows only
             du = co.accu.mv(sol).reshape(u.shape)

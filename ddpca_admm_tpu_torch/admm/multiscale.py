@@ -47,6 +47,8 @@ from ..solvers.mg import MgHierarchy, build_hierarchy
 from ..sparse.bell import device_sparse, round_up
 from ..sparse.ell import Ell
 from ..utils.constants import DENSE_COARSE_MAXI, DIRE_MAXI
+from ..utils.device import tree_map
+from ..utils.pool import thread_imap
 from .operators import RegionOps
 
 
@@ -85,6 +87,36 @@ class CoarseCorrection(NamedTuple):
     mg: MgHierarchy | None = None   # DOUBLE_M(_1) DD hierarchy, or None
 
 
+def _in_dtype(op, dtype: torch.dtype):
+    """``op`` with its floating-point tables in ``dtype``."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    op)
+
+
+def restriction_chain(mg: MgHierarchy, level: int) -> tuple:
+    """The hierarchy's Pt operators from the finest level down to
+    ``level`` (F^T), their tables in A_top's dtype, the solve dtype.
+
+    The V-cycle keeps them in float32, and K1 on the card computes in its
+    table's dtype: a float32 chain rounds F^T A u, whose terms the coarse
+    right-hand side cancels, to float32, and the ADMM loop then stalls
+    above its criterion (BLOCK glob_leve=2 with the chain forced: a floor
+    near 1e-11 against the 1e-12 it needs).  Cast from the float32 tables,
+    these hold the same values, so the CPU's plain versions, which
+    promote, give the same bits with either."""
+    dt = mg.A_top.dtype
+    return tuple(_in_dtype(mg.levels[l].Pt, dt)
+                 for l in range(len(mg.levels) - 1, level, -1))
+
+
+def prolongation_chain(mg: MgHierarchy, level: int) -> tuple:
+    """The hierarchy's P operators from ``level`` up to the finest (F), in
+    the solve dtype, as ``restriction_chain``."""
+    dt = mg.A_top.dtype
+    return tuple(_in_dtype(mg.levels[l].P, dt)
+                 for l in range(level + 1, len(mg.levels)))
+
+
 class ComposedTranD:
     """globTran_D_1 action computed THROUGH the multigrid hierarchy instead
     of materialized.  The dominant block of globTran_D_1 is F^T A_finest
@@ -96,13 +128,14 @@ class ComposedTranD:
 
     ``level`` (static) is the coarse level dole; ``idx``/``mask`` map the
     restricted per-body (B, n_dole_pad) layout into the stacked coarse
-    vector (Nc_pad,)."""
+    vector (Nc_pad,); ``chain`` is ``restriction_chain(mg, level)``."""
 
-    def __init__(self, reg, idx, mask, level: int):
+    def __init__(self, reg, idx, mask, level: int, chain: tuple):
         self.reg = reg        # Ell (Nc_pad, B*n_pad) region part, sign baked
         self.idx = idx        # (Nc_pad,) int64 into flattened (B*n_dole_pad)
         self.mask = mask      # (Nc_pad,) 0/1 in solve dtype
         self.level = int(level)
+        self.chain = tuple(chain)
 
     def apply(self, mg: "MgHierarchy", u: torch.Tensor,
               gather) -> torch.Tensor:
@@ -110,8 +143,8 @@ class ComposedTranD:
         identity on one device): the A_top and Pt chain runs on the rank's
         bodies, ``take`` and the region part on the gathered vectors."""
         y = mg.A_top.mv(u)                                # (B, n_pad)
-        for l in range(len(mg.levels) - 1, self.level, -1):
-            y = mg.levels[l].Pt.mv(y)
+        for Pt in self.chain:
+            y = Pt.mv(y)
         y, u = gather(y), gather(u)
         part_a = -torch.take(y.reshape(-1), self.idx) * self.mask
         return part_a + self.reg.mv(u.reshape(-1))
@@ -120,26 +153,42 @@ class ComposedTranD:
 class ComposedAccu:
     """accuProl action through the hierarchy: du = F sol = (P chain) applied
     to the coarse solution scattered into the per-body level-dole layout —
-    replaces the materialized block-diagonal F."""
+    replaces the materialized block-diagonal F.  ``chain`` is
+    ``prolongation_chain(mg, level)``."""
 
-    def __init__(self, idx, mask, level: int, n_dole_pad: int, n_bodies: int):
+    def __init__(self, idx, mask, level: int, n_dole_pad: int, n_bodies: int,
+                 chain: tuple):
         self.idx = idx
         self.mask = mask
         self.level = int(level)
         self.n_dole_pad = int(n_dole_pad)
         self.n_bodies = int(n_bodies)
+        self.chain = tuple(chain)
 
-    def apply(self, mg: "MgHierarchy", sol: torch.Tensor,
-              rows: slice) -> torch.Tensor:
+    def apply(self, sol: torch.Tensor, rows: slice) -> torch.Tensor:
         """``rows`` keeps a rank's bodies of the scattered level-dole
         layout before the P chain (every body on one device)."""
         y = torch.zeros((self.n_bodies * self.n_dole_pad,), dtype=sol.dtype,
                         device=sol.device)
         y = y.index_add(0, self.idx, sol * self.mask)
         y = y.reshape(self.n_bodies, self.n_dole_pad)[rows]
-        for l in range(self.level + 1, len(mg.levels)):
-            y = mg.levels[l].P.mv(y)
+        for P in self.chain:
+            y = P.mv(y)
         return y                                          # (B, n_pad)
+
+
+def with_chains(co: CoarseCorrection, mg: MgHierarchy) -> CoarseCorrection:
+    """``co`` with the chains of its composed operators taken from ``mg``
+    (for a correction whose operators were made without them)."""
+    tranD, accu = co.tranD, co.accu
+    if isinstance(tranD, ComposedTranD):
+        tranD = ComposedTranD(tranD.reg, tranD.idx, tranD.mask, tranD.level,
+                              restriction_chain(mg, tranD.level))
+    if isinstance(accu, ComposedAccu):
+        accu = ComposedAccu(accu.idx, accu.mask, accu.level,
+                            accu.n_dole_pad, accu.n_bodies,
+                            prolongation_chain(mg, accu.level))
+    return co._replace(tranD=tranD, accu=accu)
 
 
 class _SparseAccum:
@@ -273,24 +322,33 @@ def glob_coup_1(
     coarse correction and the APPS eigen-analysis (MCONTACT.h:2350-2365 runs
     Spectra on this same matrix)."""
     B = len(systems)
-    F = [_coarse_restriction(s, dole[v]) for v, s in enumerate(systems)]
+    F = list(thread_imap(lambda v: _coarse_restriction(systems[v], dole[v]),
+                         range(B)))
     nc = [F[v].shape[1] for v in range(B)]
     base = np.concatenate([[0], np.cumsum(nc)])
     Nc = int(base[-1])
-    XF = [(systems[v].expand @ F[v]).tocsr() for v in range(B)]  # (3N x nc)
+    XF = list(thread_imap(lambda v: (systems[v].expand @ F[v]).tocsr(),
+                          range(B)))  # (3N x nc)
     Gacc = _SparseAccum(Nc)
-    for v in range(B):
-        Gacc.add(base[v], base[v], F[v].T @ systems[v].cons_stif[-1] @ F[v])
-    for r in regions:
-        for s in (0, 1):
-            b_self = r.region.bodies[s]
-            b_mate = r.region.bodies[1 - s]
-            U_self = XF[b_self]
-            U_mate = XF[b_mate]
-            S = r.sides[s].self_mass_rot
-            C = r.sides[s].cross_mass
-            Gacc.add(base[b_self], base[b_self], -0.5 * (U_self.T @ S @ U_self))
-            Gacc.add(base[b_self], base[b_mate], -0.5 * (U_self.T @ C @ U_mate))
+    for v, blk in enumerate(thread_imap(
+            lambda v: F[v].T @ systems[v].cons_stif[-1] @ F[v], range(B))):
+        Gacc.add(base[v], base[v], blk)
+    sides = [(r, s) for r in regions for s in (0, 1)]
+
+    def couplings(rs):
+        r, s = rs
+        U_self = XF[r.region.bodies[s]]
+        U_mate = XF[r.region.bodies[1 - s]]
+        S = r.sides[s].self_mass_rot
+        C = r.sides[s].cross_mass
+        return -0.5 * (U_self.T @ S @ U_self), -0.5 * (U_self.T @ C @ U_mate)
+
+    for (r, s), (self_blk, mate_blk) in zip(sides,
+                                            thread_imap(couplings, sides)):
+        b_self = r.region.bodies[s]
+        b_mate = r.region.bodies[1 - s]
+        Gacc.add(base[b_self], base[b_self], self_blk)
+        Gacc.add(base[b_self], base[b_mate], mate_blk)
     return Gacc.tocsr(), F, base, XF
 
 
@@ -331,15 +389,14 @@ def build_coarse_correction(
     group_region_idx: Sequence[Sequence[int]],
     m_pads: Sequence[int],
     coarse_solver: str = "auto",
-    compose_n_dole_pad: int | None = None,
+    compose_mg: MgHierarchy | None = None,
 ) -> CoarseCorrection:
-    """``compose_n_dole_pad``: when set (the structured/uniform-dole path),
-    the F^T A block of globTran_D_1 and the accuProl are NOT materialized —
-    the loop computes them through the hierarchy's A_top/Pt/P operators
-    (ComposedTranD / ComposedAccu); the value is the padded per-body row
-    count of hierarchy level dole."""
+    """``compose_mg``: when given (the structured/uniform-dole path), the
+    F^T A block of globTran_D_1 and the accuProl are NOT materialized —
+    the loop computes them through this body hierarchy's A_top and its
+    Pt/P chains (ComposedTranD / ComposedAccu)."""
     B = len(systems)
-    compose = compose_n_dole_pad is not None
+    compose = compose_mg is not None
     if compose:
         assert len(set(dole)) == 1, "composed path requires uniform dole"
     G_sp, F, base, XF = glob_coup_1(systems, regions, dole)
@@ -357,19 +414,27 @@ def build_coarse_correction(
             part_a.resize((nc[v], n_pad))
             blocks[v] = part_a
         rows_td.append(blocks)
-    for r in regions:
-        for s in (0, 1):
-            b_self = r.region.bodies[s]
-            b_mate = r.region.bodies[1 - s]
-            S = r.sides[s].self_mass_rot
-            C = r.sides[s].cross_mass
-            X_self, X_mate = systems[b_self].expand, systems[b_mate].expand
-            add_self = (-0.5 * (F[b_self].T @ (X_self.T @ S @ X_self))).tocsr()
-            add_self.resize((nc[b_self], n_pad))
-            rows_td[b_self][b_self] = (rows_td[b_self][b_self] + add_self).tocsr()
-            add_mate = (-0.5 * (F[b_mate].T @ (X_mate.T @ C.T @ X_self))).tocsr()
-            add_mate.resize((nc[b_mate], n_pad))
-            rows_td[b_mate][b_self] = (rows_td[b_mate][b_self] + add_mate).tocsr()
+    def couplings(rs):
+        r, s = rs
+        b_self = r.region.bodies[s]
+        b_mate = r.region.bodies[1 - s]
+        S = r.sides[s].self_mass_rot
+        C = r.sides[s].cross_mass
+        X_self, X_mate = systems[b_self].expand, systems[b_mate].expand
+        add_self = (-0.5 * (F[b_self].T @ (X_self.T @ S @ X_self))).tocsr()
+        add_self.resize((nc[b_self], n_pad))
+        add_mate = (-0.5 * (F[b_mate].T @ (X_mate.T @ C.T @ X_self))).tocsr()
+        add_mate.resize((nc[b_mate], n_pad))
+        return add_self, add_mate
+
+    # the products in threads, the sums in the regions' order
+    sides = [(r, s) for r in regions for s in (0, 1)]
+    for (r, s), (add_self, add_mate) in zip(sides,
+                                            thread_imap(couplings, sides)):
+        b_self = r.region.bodies[s]
+        b_mate = r.region.bodies[1 - s]
+        rows_td[b_self][b_self] = (rows_td[b_self][b_self] + add_self).tocsr()
+        rows_td[b_mate][b_self] = (rows_td[b_mate][b_self] + add_mate).tocsr()
     tranD = sp.vstack(
         [sp.hstack(rows_td[v], format="csr") for v in range(B)], format="csr"
     )
@@ -379,25 +444,24 @@ def build_coarse_correction(
 
     # ---- globTran_1 (MCONTACT.h:2124-2299), per region group stacked
     # (row-compacted: each (region, side) only touches its two body blocks)
+    def tran_l(rs):
+        r, s = rs
+        b_self = r.region.bodies[s]
+        b_mate = r.region.bodies[1 - s]
+        mdof = r.sides[s].inte_mass.shape[0]
+        T_self = (-0.5 * (XF[b_self].T @ r.sides[s].syst_tran)).tocoo()
+        T_mate = (0.5 * (XF[b_mate].T @ r.sides[s].cross_tran)).tocoo()
+        rows = np.concatenate(
+            [T_self.row + base[b_self], T_mate.row + base[b_mate]]
+        )
+        cols = np.concatenate([T_self.col, T_mate.col])
+        vals = np.concatenate([T_self.data, T_mate.data])
+        return sp.coo_matrix((vals, (rows, cols)), shape=(Nc, mdof)).tocsr()
+
     tranL_groups, tranL_idx_groups = [], []
     for g_i, idx in enumerate(group_region_idx):
-        mats = []
-        for ri in idx:
-            r = regions[ri]
-            for s in (0, 1):
-                b_self = r.region.bodies[s]
-                b_mate = r.region.bodies[1 - s]
-                mdof = r.sides[s].inte_mass.shape[0]
-                T_self = (-0.5 * (XF[b_self].T @ r.sides[s].syst_tran)).tocoo()
-                T_mate = (0.5 * (XF[b_mate].T @ r.sides[s].cross_tran)).tocoo()
-                rows = np.concatenate(
-                    [T_self.row + base[b_self], T_mate.row + base[b_mate]]
-                )
-                cols = np.concatenate([T_self.col, T_mate.col])
-                vals = np.concatenate([T_self.data, T_mate.data])
-                mats.append(
-                    sp.coo_matrix((vals, (rows, cols)), shape=(Nc, mdof)).tocsr()
-                )
+        mats = list(thread_imap(
+            tran_l, [(regions[ri], s) for ri in idx for s in (0, 1)]))
         R = len(idx)
         ell, ridx = _compact_stack(mats, m_pads[g_i], (R, 2))
         tranL_groups.append(ell)
@@ -405,7 +469,7 @@ def build_coarse_correction(
 
     Nc_pad = round_up(Nc, 128)
     if compose:
-        ndp = int(compose_n_dole_pad)
+        ndp = int(compose_mg.levels[dole[0]].A.n_rows)
         idx = np.zeros(Nc_pad, np.int64)
         mask = np.zeros(Nc_pad, np.float64)
         for v in range(B):
@@ -414,10 +478,11 @@ def build_coarse_correction(
         tranD_op = ComposedTranD(
             device_sparse([(-tranD).tocsr()], Nc_pad, B * n_pad),
             torch.from_numpy(idx), torch.from_numpy(mask), int(dole[0]),
+            restriction_chain(compose_mg, int(dole[0])),
         )
         accu_op = ComposedAccu(
             torch.from_numpy(idx), torch.from_numpy(mask), int(dole[0]), ndp,
-            B,
+            B, prolongation_chain(compose_mg, int(dole[0])),
         )
     else:
         tranD_op = device_sparse(

@@ -31,6 +31,7 @@ from ..solvers.mg import MgHierarchy, build_hierarchy
 from ..sparse.bell import compact_device_sparse, device_sparse, round_up
 from ..sparse.ell import Ell
 from ..utils.device import resolve_device, to_device
+from ..utils.pool import thread_imap
 from .operators import RegionOps
 
 
@@ -235,12 +236,14 @@ def build_problem(
         def stacked(mats, n_rows, n_cols):
             return device_sparse(mats, n_rows, n_cols, batch_shape=(R, 2))
 
-        comp = {
-            (i, s): _compose(r, systems[r.region.bodies[s]].expand,
-                             systems[r.region.bodies[s]].expand_const, s)
-            for i, r in enumerate(regs) for s in (0, 1)
-        }
         sides2 = [(i, s) for i in range(R) for s in (0, 1)]
+
+        def compose(side):
+            i, s = side
+            body = systems[regs[i].region.bodies[s]]
+            return _compose(regs[i], body.expand, body.expand_const, s)
+
+        comp = dict(zip(sides2, thread_imap(compose, sides2)))
         # TtP/Tt (X^T systTran(_pena)) are nonzero only on body DOFs near
         # the interface: store them row-compacted with a shared scatter
         # index into the stacked (B, n) rhs (body offset baked in) instead
@@ -337,19 +340,17 @@ def build_problem(
             compose_min = int(
                 _os.environ.get("DDPCA_COMPOSE_TRAND_MIN_DOFS", "2000000")
             )
-            ndp = (
-                mg.levels[dole[0]].A.n_rows
-                if grids is not None
+            compose = (
+                grids is not None
                 and len(set(dole)) == 1
                 and B * n_pad >= compose_min
-                else None
             )
             with _phase("MCONTACT::MULTISCALE_1 (coarse correction B)"):
                 parts.append(
                     build_coarse_correction(
                         systems, regions, list(dole), n_pad, group_region_idx,
                         m_pads, coarse_solver=coarse_solver,
-                        compose_n_dole_pad=ndp,
+                        compose_mg=mg if compose else None,
                     )
                 )
         coarse = tuple(parts) if parts else None

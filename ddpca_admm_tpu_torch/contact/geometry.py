@@ -27,6 +27,8 @@ from ..utils.quadrature import QUAD_CORNERS, TRI_QUAD
 
 MINI_AREA = 1.0e-12
 DEDUP_TOL = 1.0e-10
+# how far outside the master square [-1, 1]^2 a clipping vertex may lie
+CLIP_TOL = 1.0e-9
 NEWTON_ITERS = 60
 
 # bilinear coefficients: x(xi,eta) = c0 + c1 xi + c2 eta + c3 xi eta
@@ -61,6 +63,10 @@ def quad4_tangents(coef: np.ndarray, xi: np.ndarray) -> tuple[np.ndarray, np.nda
     return c1 + c3 * xi[..., 1:2], c2 + c3 * xi[..., 0:1]
 
 
+def _flat(a: np.ndarray, lead: tuple, tail: tuple) -> np.ndarray:
+    return np.broadcast_to(a, lead + tail).reshape((-1,) + tail)
+
+
 def project_points_to_quads(
     corners: np.ndarray, points: np.ndarray, xi0: np.ndarray | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -69,16 +75,24 @@ def project_points_to_quads(
 
     corners (...,4,3), points (...,3) -> (xi (...,2), gap (...,)).
     gap = n . (p - x(xi)) with n = normalized t1 x t2.
-    """
+
+    Each Newton step updates only the points not yet converged: a point
+    that met the criterion keeps its xi, and would meet it again."""
     coef = bilinear_coeffs(corners)
-    xi = np.zeros(points.shape[:-1] + (2,)) if xi0 is None else xi0.copy()
+    lead = np.broadcast_shapes(coef.shape[:-2], points.shape[:-1])
+    coef = _flat(coef, lead, (4, 3))
+    pts = _flat(points, lead, (3,))
+    xi = (np.zeros((pts.shape[0], 2)) if xi0 is None
+          else _flat(xi0, lead, (2,)).copy())
+    act = np.arange(pts.shape[0])
     for _ in range(NEWTON_ITERS):
-        x = quad4_eval(coef, xi)
-        t1, t2 = quad4_tangents(coef, xi)
-        dvec = x - points
+        cf, xa = coef[act], xi[act]
+        x = quad4_eval(cf, xa)
+        t1, t2 = quad4_tangents(cf, xa)
+        dvec = x - pts[act]
         r1 = (dvec * t1).sum(-1)
         r2 = (dvec * t2).sum(-1)
-        c3 = coef[..., 3, :]
+        c3 = cf[..., 3, :]
         dc3 = (dvec * c3).sum(-1)
         J11 = (t1 * t1).sum(-1)
         J12 = (t1 * t2).sum(-1) + dc3
@@ -91,15 +105,16 @@ def project_points_to_quads(
         done = (np.linalg.norm(dxi, axis=-1) < 1e-12) & (
             np.hypot(r1, r2) < 1e-15
         )
-        xi = np.where(done[..., None], xi, xi + dxi)
-        if done.all():
+        xi[act] = np.where(done[..., None], xa, xa + dxi)
+        act = act[~done]
+        if act.size == 0:
             break
     x = quad4_eval(coef, xi)
     t1, t2 = quad4_tangents(coef, xi)
     n = np.cross(t1, t2)
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    gap = ((points - x) * n).sum(-1)
-    return xi, gap
+    gap = ((pts - x) * n).sum(-1)
+    return xi.reshape(lead + (2,)), gap.reshape(lead)
 
 
 def project_normal_to_quads(
@@ -113,22 +128,29 @@ def project_normal_to_quads(
     (x_s - p) perpendicular to both master tangents.
 
     tang1/tang2/points (...,3); slav_corners (...,4,3) ->
-    (slave xi (...,2), gap (...,) = n.(x_s - p)).
+    (slave xi (...,2), gap (...,) = n.(x_s - p)).  Newton steps update
+    only the points not yet converged, as in ``project_points_to_quads``.
     """
     coef = bilinear_coeffs(slav_corners)
-    xi = np.zeros(points.shape[:-1] + (2,))
-    c3 = coef[..., 3, :]
+    lead = np.broadcast_shapes(tang1.shape[:-1], tang2.shape[:-1],
+                               points.shape[:-1], coef.shape[:-2])
+    coef = _flat(coef, lead, (4, 3))
+    tang1, tang2, pts = (_flat(v, lead, (3,)) for v in (tang1, tang2, points))
+    xi = np.zeros((pts.shape[0], 2))
+    act = np.arange(pts.shape[0])
     for _ in range(NEWTON_ITERS):
-        x = quad4_eval(coef, xi)
-        dvec = x - points
-        r1 = (dvec * tang1).sum(-1)
-        r2 = (dvec * tang2).sum(-1)
-        xs1 = coef[..., 1, :] + c3 * xi[..., 1:2]   # dx_s/dxi
-        xs2 = coef[..., 2, :] + c3 * xi[..., 0:1]   # dx_s/deta
-        J11 = (xs1 * tang1).sum(-1)
-        J12 = (xs2 * tang1).sum(-1)
-        J21 = (xs1 * tang2).sum(-1)
-        J22 = (xs2 * tang2).sum(-1)
+        cf, xa, ta1, ta2 = coef[act], xi[act], tang1[act], tang2[act]
+        c3 = cf[..., 3, :]
+        x = quad4_eval(cf, xa)
+        dvec = x - pts[act]
+        r1 = (dvec * ta1).sum(-1)
+        r2 = (dvec * ta2).sum(-1)
+        xs1 = cf[..., 1, :] + c3 * xa[..., 1:2]   # dx_s/dxi
+        xs2 = cf[..., 2, :] + c3 * xa[..., 0:1]   # dx_s/deta
+        J11 = (xs1 * ta1).sum(-1)
+        J12 = (xs2 * ta1).sum(-1)
+        J21 = (xs1 * ta2).sum(-1)
+        J22 = (xs2 * ta2).sum(-1)
         det = J11 * J22 - J12 * J21
         det = np.where(np.abs(det) < 1e-300, 1.0, det)
         dxi = -np.stack(
@@ -137,14 +159,15 @@ def project_normal_to_quads(
         done = (np.linalg.norm(dxi, axis=-1) < 1e-14) & (
             np.hypot(r1, r2) < 1e-15
         )
-        xi = np.where(done[..., None], xi, xi + dxi)
-        if done.all():
+        xi[act] = np.where(done[..., None], xa, xa + dxi)
+        act = act[~done]
+        if act.size == 0:
             break
     n = np.cross(tang1, tang2)
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
     x = quad4_eval(coef, xi)
-    gap = ((x - points) * n).sum(-1)
-    return xi, gap
+    gap = ((x - pts) * n).sum(-1)
+    return xi.reshape(lead + (2,)), gap.reshape(lead)
 
 
 # ------------------------------------------------------------------- clipping
@@ -282,6 +305,13 @@ def clip_pairs(slav_proj: np.ndarray):
             cand[:, idx : idx + 2] = pts
             cval[:, idx : idx + 2] = val
             idx += 2
+
+    # every vertex of the intersection lies in the master square; a point
+    # outside it is an artefact of two nearly collinear edges, where the
+    # far end of a long slave edge passes for an endpoint on the master's
+    # (a slave quad ~100 faces long, whose projected corners carry
+    # 1e-12 of rounding: BLOCK's ring load at glob_leve=4)
+    cval &= (np.abs(cand) <= 1.0 + CLIP_TOL).all(axis=-1)
 
     # dedup on 1e-10 grid, compact valid to front
     keys = np.round(cand / DEDUP_TOL).astype(np.int64)

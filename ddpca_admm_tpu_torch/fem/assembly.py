@@ -63,7 +63,21 @@ def distribute_face_load(
         trac = np.broadcast_to(trac, (corners.shape[0], 3))
         contrib = (w * jac)[:, None, None] * N[None, :, None] * trac[:, None, :]
         dofs = 3 * face_nodes[:, :, None] + np.arange(3)
-        flat_dofs = dofs.ravel()
-        flat_vals = contrib.ravel()
-        for d, v in zip(flat_dofs, flat_vals):
-            loads[int(d)] = loads.get(int(d), 0.0) + float(v)
+        accumulate_loads(loads, dofs, contrib)
+
+
+def accumulate_loads(loads: dict[int, float], dofs: np.ndarray,
+                     vals: np.ndarray) -> None:
+    """``loads[d] += v`` for each (d, v) of the flattened arrays, in their
+    order: each DOF's sum is added up in the same sequence as one Python
+    loop would, and a new DOF enters ``loads`` at its first appearance."""
+    dofs = np.asarray(dofs, dtype=np.int64).ravel()
+    vals = np.asarray(vals, dtype=np.float64).ravel()
+    uniq, first, inv = np.unique(dofs, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    keys = uniq[order].tolist()
+    acc = np.array([loads.get(k, 0.0) for k in keys], dtype=np.float64)
+    np.add.at(acc, rank[inv], vals)
+    loads.update(zip(keys, acc.tolist()))

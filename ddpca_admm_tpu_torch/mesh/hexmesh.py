@@ -86,24 +86,25 @@ class HexMesh:
         kview = _rows_view(keys)
         uniq, first_idx, inv = np.unique(kview, return_index=True, return_inverse=True)
         uniq_ids = np.empty(uniq.shape[0], dtype=np.int64)
-        fresh_rows = []
+        fresh_u = []
         fresh_keys = []
-        for u in range(uniq.shape[0]):
-            key = tuple(int(v) for v in keys[first_idx[u]])
-            hit = self._coord_map.get(key)
+        get = self._coord_map.get
+        for u, key in enumerate(map(tuple, keys[first_idx].tolist())):
+            hit = get(key)
             if hit is None:
-                fresh_rows.append(first_idx[u])
-                fresh_keys.append((u, key))
+                fresh_u.append(u)
+                fresh_keys.append(key)
             else:
                 uniq_ids[u] = hit
-        if fresh_rows:
+        if fresh_u:
+            fresh_u = np.array(fresh_u, dtype=np.int64)
             base = self._coords.shape[0]
             self._coords = np.concatenate(
-                [self._coords, coords[np.array(fresh_rows)]], axis=0
+                [self._coords, coords[first_idx[fresh_u]]], axis=0
             )
-            for off, (u, key) in enumerate(fresh_keys):
-                self._coord_map[key] = base + off
-                uniq_ids[u] = base + off
+            ids = base + np.arange(fresh_u.size, dtype=np.int64)
+            self._coord_map.update(zip(fresh_keys, ids.tolist()))
+            uniq_ids[fresh_u] = ids
         return uniq_ids[inv]
 
     def set_coords(self, node_ids: np.ndarray, coords: np.ndarray) -> None:
@@ -227,7 +228,8 @@ class HexMesh:
         ent = np.sort(ent.reshape(-1, k), axis=1)
         owners = np.repeat(np.arange(self.n_elems), table.shape[0])
         view = _rows_view(ent)
-        order = np.argsort(view, kind="stable")
+        # the stable lexicographic order of the rows (argsort of ``view``)
+        order = np.lexsort(ent.T[::-1])
         sview = view[order]
         sowners = owners[order]
         uniq_mask = np.ones(sview.shape[0], dtype=bool)
@@ -244,38 +246,44 @@ class HexMesh:
         get full pattern 0."""
         if not spli:
             return spli
-        e_uniq, e_starts, e_elems = self._entity_adjacency("edge")
-        f_uniq, f_starts, f_elems = self._entity_adjacency("face")
+        adjacency = {
+            "edge": (HEX_EDGES, *self._entity_adjacency("edge")),
+            "face": (HEX_FACES, *self._entity_adjacency("face")),
+        }
         leaf = self.leaf_mask()
         spli = set(int(x) for x in spli)
+        marked = np.zeros(self.n_elems, dtype=bool)
+        marked[list(spli)] = True
         frontier = np.array(sorted(spli), dtype=np.int64)
         while frontier.size:
-            added: set[int] = set()
-            has_parent = self.elem_parent[frontier] >= 0
-            for eid in frontier[has_parent]:
-                pid = int(self.elem_parent[eid])
-                p_patt = int(self.elem_patt[pid])
-                ordinal = int(eid - self.elem_child0[pid])
-                t = TEMPLATES[p_patt]
-                pcorn = self.elem_corn[pid]
-                for kind, touched, table, uniq, starts, elems in (
-                    ("edge", t.touched_edges[ordinal], HEX_EDGES, e_uniq, e_starts, e_elems),
-                    ("face", t.touched_faces[ordinal], HEX_FACES, f_uniq, f_starts, f_elems),
-                ):
+            # every element sharing a parent edge/face that one of the
+            # frontier's elements touches, per (parent pattern, ordinal)
+            fr = frontier[self.elem_parent[frontier] >= 0]
+            pids = self.elem_parent[fr]
+            ords = fr - self.elem_child0[pids]
+            patts = self.elem_patt[pids]
+            found = [np.zeros(0, dtype=np.int64)]
+            for p, o in set(zip(patts.tolist(), ords.tolist())):
+                t = TEMPLATES[p]
+                pcorn = self.elem_corn[pids[(patts == p) & (ords == o)]]
+                for kind, touched in (("edge", t.touched_edges[o]),
+                                      ("face", t.touched_faces[o])):
                     if not touched:
                         continue
-                    keys = np.sort(pcorn[table[np.array(touched)]], axis=1)
-                    kv = _rows_view(keys)
-                    pos = np.searchsorted(uniq, kv)
-                    for p in pos:
-                        for nb in elems[starts[p] : starts[p + 1]]:
-                            nb = int(nb)
-                            if leaf[nb] and nb not in spli:
-                                added.add(nb)
-                                self.elem_patt[nb] = 0
-                if added:
-                    spli |= added
-            frontier = np.array(sorted(added), dtype=np.int64)
+                    table, uniq, starts, elems = adjacency[kind]
+                    keys = np.sort(pcorn[:, table[np.array(touched)]], axis=2)
+                    pos = np.searchsorted(
+                        uniq, _rows_view(keys.reshape(-1, keys.shape[2])))
+                    lo, n = starts[pos], starts[pos + 1] - starts[pos]
+                    first = np.cumsum(n) - n
+                    found.append(elems[np.repeat(lo - first, n)
+                                       + np.arange(n.sum())])
+            nb = np.unique(np.concatenate(found))
+            added = nb[leaf[nb] & ~marked[nb]]
+            self.elem_patt[added] = 0
+            marked[added] = True
+            spli |= set(added.tolist())
+            frontier = added
         return spli
 
     def refine(
@@ -342,7 +350,7 @@ class HexMesh:
             )
             self.elem_child0[els] = child_ids[::nc]
             self.elem_nchild[els] = nc
-            for row, eid in enumerate(els):
+            for row, eid in enumerate(els if spli_flag else ()):
                 flagged = spli_flag.get(int(eid))
                 if flagged:
                     for ordinal in flagged:
@@ -380,64 +388,83 @@ class HexMesh:
         e_hasleaf = _has_leaf_sharer(e_uniq, e_starts, e_elems)
         f_hasleaf = _has_leaf_sharer(f_uniq, f_starts, f_elems)
 
-        # node -> level classification; ininTran[l]: list of (parents, node)
-        inin: list[dict[int, tuple[int, ...]]] = [dict() for _ in range(L + 1)]
-        node_level_set: list[set[int]] = [set() for _ in range(L + 2)]
-        lvl0 = self.elem_level == 0
-        for nid in np.unique(self.elem_corn[lvl0]):
-            node_level_set[0].add(int(nid))
-
+        # node -> level classification (ininTran[l]), one template node of
+        # every refined element at a time, in element order: a node met again
+        # through a shared edge or face keeps the parents of its last visit
+        n_max = 8
+        occ_eid, occ_j, occ_node, occ_target, occ_par, occ_k = (
+            [], [], [], [], [], [])
         refined = np.nonzero(~leaf)[0]
-        for eid in refined:
-            s = int(self.elem_patt[eid])
-            t = TEMPLATES[s]
-            lvl = int(self.elem_level[eid])
-            corn = self.elem_corn[eid]
-            child0 = int(self.elem_child0[eid])
+        patts = self.elem_patt[refined]
+        for s in np.unique(patts):
+            els = refined[patts == s]
+            t = TEMPLATES[int(s)]
+            lvl = self.elem_level[els]
+            corn = self.elem_corn[els]
+            child0 = self.elem_child0[els]
             for j, nn in enumerate(t.new_nodes):
-                child_eid = child0 + nn.child
-                node = int(self.elem_corn[child_eid, nn.child_corner])
-                parents = tuple(int(v) for v in np.sort(corn[np.array(nn.corners)]))
+                parents = np.sort(corn[:, list(nn.corners)], axis=1)
                 if nn.kind == "center":
                     target = lvl
                 else:
-                    if nn.kind == "edge":
-                        key = _rows_view(np.array([parents], dtype=np.int64))[0]
-                        u = np.searchsorted(e_uniq, key)
-                        hanging = bool(e_hasleaf[u])
-                    else:
-                        key = _rows_view(np.array([parents], dtype=np.int64))[0]
-                        u = np.searchsorted(f_uniq, key)
-                        hanging = bool(f_hasleaf[u])
-                    target = L if hanging else lvl
-                inin[target][node] = parents
-                node_level_set[target + 1].add(node)
+                    uniq, hasleaf = (
+                        (e_uniq, e_hasleaf) if nn.kind == "edge"
+                        else (f_uniq, f_hasleaf)
+                    )
+                    u = np.searchsorted(uniq, _rows_view(parents))
+                    target = np.where(hasleaf[u], L, lvl)
+                par = np.full((els.size, n_max), -1, dtype=np.int64)
+                par[:, : parents.shape[1]] = parents
+                occ_eid.append(els)
+                occ_j.append(np.full(els.size, j, dtype=np.int64))
+                occ_node.append(
+                    self.elem_corn[child0 + nn.child, nn.child_corner])
+                occ_target.append(target)
+                occ_par.append(par)
+                occ_k.append(np.full(els.size, parents.shape[1], np.int64))
+        if occ_eid:
+            order = np.lexsort(
+                (np.concatenate(occ_j), np.concatenate(occ_eid)))
+            occ_node = np.concatenate(occ_node)[order]
+            occ_target = np.concatenate(occ_target)[order]
+            occ_par = np.concatenate(occ_par)[order]
+            occ_k = np.concatenate(occ_k)[order]
+        else:
+            occ_node = occ_target = occ_k = np.zeros(0, dtype=np.int64)
+            occ_par = np.zeros((0, n_max), dtype=np.int64)
+
+        # inin[l]: (nodes ascending, parents padded with -1, parent counts)
+        inin = []
+        for lv in range(L + 1):
+            sel = np.nonzero(occ_target == lv)[0]
+            rev = occ_node[sel][::-1]
+            nodes, first = np.unique(rev, return_index=True)
+            last = sel[::-1][first]
+            inin.append((nodes, occ_par[last], occ_k[last]))
+        node_level_set = [np.unique(self.elem_corn[self.elem_level == 0])]
+        node_level_set += [inin[lv][0] for lv in range(L + 1)]
 
         # PATCH: snap hanging nodes to parent average (MULTIGRID.h:722-754)
         self.fino_cono = {}
         self.cono_fino = {}
-        hang = inin[L] if L >= 0 else {}
-        if hang:
-            nodes = np.array(sorted(hang.keys()), dtype=np.int64)
-            coords = np.stack(
-                [self._coords[np.array(hang[int(n)])].mean(axis=0) for n in nodes]
-            )
+        if L >= 0 and inin[L][0].size:
+            nodes, par, k = inin[L]
+            coords = np.empty((nodes.size, 3))
+            for m in np.unique(k):
+                sel = k == m
+                coords[sel] = self._coords[par[sel, :m]].mean(axis=1)
             self.set_coords(nodes, coords)
-            for n in nodes:
-                self.fino_cono[int(n)] = hang[int(n)]
-                self.cono_fino[hang[int(n)]] = int(n)
+            tuples = [tuple(p[:m]) for p, m in zip(par.tolist(), k.tolist())]
+            self.fino_cono = dict(zip(nodes.tolist(), tuples))
+            self.cono_fino = dict(zip(tuples, nodes.tolist()))
 
         # level ordering (coupling nodes -> artificial level; rep -> level 0)
+        coup = np.array(sorted(self.coup_nodes), dtype=np.int64)
         self.level_nodes = []
         for lv in range(L + 2):
-            sel = []
-            for n in sorted(node_level_set[lv]):
-                if n == self.coup_reps:
-                    continue
-                if n in self.coup_nodes:
-                    continue
-                sel.append(n)
-            self.level_nodes.append(np.array(sel, dtype=np.int64))
+            sel = node_level_set[lv].astype(np.int64)
+            drop = (sel == self.coup_reps) | np.isin(sel, coup)
+            self.level_nodes.append(sel[~drop])
         if self.coup_reps >= 0:
             self.level_nodes[0] = np.sort(
                 np.append(self.level_nodes[0], self.coup_reps)
@@ -461,36 +488,31 @@ class HexMesh:
             acc += nodes.size
         assert acc == n_total, "every node must be classified into one level"
 
-        # scalar prolongations
+        # scalar prolongations: [I; averaging rows], a parent in the coupling
+        # set standing for its representative
         self.scal_prol = []
         cum = np.cumsum([0] + [nodes.size for nodes in self.level_nodes])
         for lv in range(L + 1):
             n_rows = int(cum[lv + 2])
             n_cols = int(cum[lv + 1])
-            rows = list(range(n_cols))
-            cols = list(range(n_cols))
-            vals = [1.0] * n_cols
-            for node, parents in inin[lv].items():
-                if node in self.coup_nodes:
-                    continue
-                r = int(self.node_pos[node])
-                w = 1.0 / len(parents)
-                for p in parents:
-                    c = int(
-                        self.node_pos[self.coup_reps]
-                        if p in self.coup_nodes
-                        else self.node_pos[p]
-                    )
-                    rows.append(r)
-                    cols.append(c)
-                    vals.append(w)
+            nodes, par, k = inin[lv]
+            keep = ~np.isin(nodes, coup)
+            nodes, par, k = nodes[keep], par[keep], k[keep]
+            valid = np.arange(n_max)[None, :] < k[:, None]
+            if coup.size:
+                par = np.where(np.isin(par, coup), self.coup_reps, par)
+            rows = [np.arange(n_cols), np.repeat(self.node_pos[nodes], k)]
+            cols = [np.arange(n_cols), self.node_pos[par[valid]]]
+            vals = [np.ones(n_cols), np.repeat(1.0 / k, k)]
             if lv == L:
                 for n in self.coup_nodes:
-                    rows.append(int(self.node_pos[n]))
-                    cols.append(int(self.node_pos[self.coup_reps]))
-                    vals.append(1.0)
+                    rows.append(np.array([self.node_pos[n]]))
+                    cols.append(np.array([self.node_pos[self.coup_reps]]))
+                    vals.append(np.ones(1))
             P = sp.csr_matrix(
-                (vals, (rows, cols)), shape=(n_rows, n_cols), dtype=np.float64
+                (np.concatenate(vals),
+                 (np.concatenate(rows), np.concatenate(cols))),
+                shape=(n_rows, n_cols), dtype=np.float64,
             )
             self.scal_prol.append(P)
 

@@ -32,7 +32,11 @@ class Body:
 
 def char_length(bodies: list[Body]) -> float:
     """GET_CHAR_LENG (MCONTACT.h:2478-2491): cube root of mean volume."""
-    vols = [b.mesh.leaf_volume() for b in bodies]
+    return char_length_of([b.mesh.leaf_volume() for b in bodies])
+
+
+def char_length_of(vols: list[float]) -> float:
+    """``char_length`` from the bodies' leaf volumes."""
     return float(np.mean(vols) ** (1.0 / 3.0))
 
 
@@ -54,21 +58,29 @@ def assemble_bodies(
     rebuilds without systMass)."""
     from ..utils.timing import phase
 
-    systems = []
     with phase("MCONTACT::ESTABLISH bodies (TRANSFER+STIF_MATR+CONSTRAINT)"):
-        for tv, b in enumerate(bodies):
-            if not b.mesh.scal_prol:
-                b.mesh.transfer()
-            A = assemble_stiffness(b.mesh, b.e_mod, b.nu)
-            if include_penalty:
-                for r in regions:
-                    for s in (0, 1):
-                        if r.region.bodies[s] == tv:
-                            A = (A + r.sides[s].syst_mass).tocsr()
-            systems.append(
-                constrain(b.mesh, A, b.cons_dofv, b.exte_forc, b.node_rota)
-            )
-    return systems
+        return [
+            body_system(b, penalty_masses(tv, regions) if include_penalty
+                        else [])
+            for tv, b in enumerate(bodies)
+        ]
+
+
+def penalty_masses(tv: int, regions: list[RegionOps]) -> list:
+    """The penalty stiffness terms ``systMass`` of body ``tv``, in the order
+    they are added to its stiffness (region by region, master side first)."""
+    return [r.sides[s].syst_mass for r in regions for s in (0, 1)
+            if r.region.bodies[s] == tv]
+
+
+def body_system(b: Body, masses: list) -> ConstrainedSystem:
+    """One body's TRANSFER, stiffness plus ``masses``, and CONSTRAINT."""
+    if not b.mesh.scal_prol:
+        b.mesh.transfer()
+    A = assemble_stiffness(b.mesh, b.e_mod, b.nu)
+    for M in masses:
+        A = (A + M).tocsr()
+    return constrain(b.mesh, A, b.cons_dofv, b.exte_forc, b.node_rota)
 
 
 def make_region(
@@ -93,8 +105,31 @@ def make_region(
     projection can produce where an interface surface bends (see
     models/dehw_assembly.DehwDDConfig.iface_max_dist)."""
     mm, sm = bodies[master].mesh, bodies[slave].mesh
-    mast_faces = surface_faces(mm, mast_pred)
-    slav_faces = surface_faces(sm, slav_pred)
+    return region_from_faces(
+        surface_faces(mm, mast_pred), surface_faces(sm, slav_pred), mm, sm,
+        (master, slave), (bodies[master].node_rota, bodies[slave].node_rota),
+        cart_curv, divisions, fric, pena_n, pena_f, max_dist, max_abs_dist,
+    )
+
+
+def region_from_faces(
+    mast_faces: np.ndarray,
+    slav_faces: np.ndarray,
+    mm,
+    sm,
+    pair: tuple[int, int],
+    node_rota: tuple,
+    cart_curv,
+    divisions: tuple[int, int],
+    fric: float,
+    pena_n: float,
+    pena_f: float | None = None,
+    max_dist: float = 1.0e12,
+    max_abs_dist: float | None = None,
+) -> RegionOps:
+    """``make_region`` from the two sides' surface faces: ``mm``/``sm`` are
+    the master's and slave's meshes, of which the search reads ``coords``
+    and ``n_nodes``; ``pair`` = (master, slave) body indices."""
     ip = region_search(
         mast_faces, slav_faces, mm, sm, cart_curv, divisions, max_dist
     )
@@ -110,16 +145,12 @@ def make_region(
         )
     reg = Region(
         ip=ip,
-        bodies=(master, slave),
+        bodies=tuple(pair),
         fric=fric,
         pena_n=pena_n,
         pena_f=pena_f if pena_f is not None else pena_n,
     )
-    return build_region_ops(
-        reg,
-        (mm.n_nodes, sm.n_nodes),
-        (bodies[master].node_rota, bodies[slave].node_rota),
-    )
+    return build_region_ops(reg, (mm.n_nodes, sm.n_nodes), node_rota)
 
 
 def apply_pressure(body: Body, pred, pressure: np.ndarray) -> None:

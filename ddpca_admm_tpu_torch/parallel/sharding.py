@@ -44,7 +44,7 @@ import torch.distributed as dist
 from torch.multiprocessing.spawn import ProcessException
 
 from ..admm.loop import AdmmState, contact_analysis, init_state
-from ..admm.multiscale import ComposedAccu
+from ..admm.multiscale import ComposedAccu, ComposedTranD
 from ..admm.problem import AdmmProblem
 from ..solvers.mg import (
     BatchBlocks,
@@ -252,12 +252,21 @@ def _slice_mg(mg: MgHierarchy, lo: int, hi: int, n: int) -> MgHierarchy:
     )
 
 
-def _slice_coarse(co, lo: int, hi: int, n_pad: int):
+def _slice_coarse(co, lo: int, hi: int, n_pad: int, n: int):
     """A coarse correction, replicated, whose materialized accu keeps only
-    the rows of bodies [lo, hi) (``ComposedAccu`` keeps the full layout and
-    the loop takes the rank's rows)."""
+    the rows of bodies [lo, hi) of n; the composed operators keep their
+    layouts (the loop takes the rank's rows) and run their chains on the
+    rank's bodies."""
     if isinstance(co.accu, ComposedAccu):
-        return co
+        tranD, accu = co.tranD, co.accu
+        if isinstance(tranD, ComposedTranD):
+            tranD = ComposedTranD(
+                tranD.reg, tranD.idx, tranD.mask, tranD.level,
+                tuple(_slice_op(op, lo, hi, n) for op in tranD.chain))
+        accu = ComposedAccu(
+            accu.idx, accu.mask, accu.level, accu.n_dole_pad, accu.n_bodies,
+            tuple(_slice_op(op, lo, hi, n) for op in accu.chain))
+        return co._replace(tranD=tranD, accu=accu)
     a = co.accu
     return co._replace(accu=Ell(a.vals[lo * n_pad:hi * n_pad].clone(),
                                 a.cols[lo * n_pad:hi * n_pad].clone(),
@@ -278,7 +287,7 @@ def shard_problem(prob: AdmmProblem, rank: int, world: int) -> AdmmProblem:
             parts[name] = _slice_op(sub, lo, hi, B)
         elif name == "coarse":
             parts[name] = (None if sub is None else
-                           tuple(_slice_coarse(co, lo, hi, n_pad)
+                           tuple(_slice_coarse(co, lo, hi, n_pad, B)
                                  for co in sub))
         elif name in _PROBLEM_REPLICATED_FIELDS:
             parts[name] = sub

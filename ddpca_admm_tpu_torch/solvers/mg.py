@@ -22,8 +22,14 @@ import torch
 
 from ..sparse import bell
 from ..sparse.bell import device_sparse, round_up
-from ..sparse.dia import dia_from_csr_list, plane_dia_from_csr_list
+from ..sparse.dia import (
+    class_cap,
+    dia_from_csr_list,
+    plane_classes,
+    plane_dia_from_csr_list,
+)
 from ..utils.constants import DENSE_COARSE_MAXI
+from ..utils.pool import thread_imap
 from ..utils.precision import solve_dtype
 
 
@@ -162,6 +168,25 @@ def _stencil_matrix(P: sp.spmatrix, zmap: np.ndarray) -> sp.csr_matrix:
     return sp.csr_matrix((P.data, (P.row, cols)), shape=(n_f, n_f))
 
 
+def _pad_identity(m: sp.csr_matrix, n: int) -> sp.csr_matrix:
+    """``sp.block_diag([m, sp.identity(n - m.shape[0])], format="csr")``
+    without its COO round trip: m's rows in canonical order (sorted, with
+    duplicates summed, as that conversion leaves them), then unit rows."""
+    extra = n - m.shape[0]
+    m = m.copy()
+    m.sum_duplicates()
+    dt = np.result_type(m.dtype, np.float64)
+    indptr = np.concatenate([
+        m.indptr, m.indptr[-1] + np.arange(1, extra + 1,
+                                           dtype=m.indptr.dtype)])
+    indices = np.concatenate([
+        m.indices, np.arange(m.shape[1], m.shape[1] + extra,
+                             dtype=m.indices.dtype)])
+    data = np.concatenate([m.data.astype(dt, copy=False), np.ones(extra, dt)])
+    return sp.csr_matrix((data, indices, indptr),
+                         shape=(n, m.shape[1] + extra))
+
+
 def estimate_lmax(A: sp.spmatrix, iters: int = 20, seed: int = 0) -> float:
     """Power iteration upper bound for lambda_max(D^{-1}A) (host, setup)."""
     A = A.tocsr()
@@ -198,13 +223,14 @@ def _bell_fits(mats, n_rows, n_cols) -> bool:
     return entries * 4 <= bell.BELL_MAX_BYTES
 
 
-def _dia_auto(mats, shape, n_rows, dt, pad_identity=True):
+def _dia_auto(mats, shape, n_rows, dt, pad_identity=True, classes=None):
     """The JAX package's structured format policy (mg.py:329-347): PlaneDia
     when the plane dedup pays (>= 4x) or the un-deduplicated bytes pass
     DIA_LATENCY_BYTES, plain Dia for small weakly-compressing groups, ELL
-    where no plane table fits and the Block-ELL budget does."""
+    where no plane table fits and the Block-ELL budget does.  ``classes``:
+    the matrices' ``plane_classes``, where the caller has them."""
     pd = plane_dia_from_csr_list(mats, shape, n_rows, dt,
-                                 pad_identity=pad_identity)
+                                 pad_identity=pad_identity, classes=classes)
     if pd is not None:
         C, D, P = pd.vals.shape
         planes = pd.kz.numel()
@@ -242,16 +268,14 @@ def build_hierarchy(
         mats = [cons_stif[b][l] for b in range(B)]
         n_pad = round_up(max(m.shape[0] for m in mats), 128)
         # pad diagonal with 1.0 so padded rows stay decoupled identity
-        padded = []
-        for m in mats:
+        def pad(m, n_pad=n_pad):
             m = m.tocsr()
-            if m.shape[0] < n_pad:
-                extra = n_pad - m.shape[0]
-                m = sp.block_diag([m, sp.identity(extra)], format="csr")
-            padded.append(m)
+            return _pad_identity(m, n_pad) if m.shape[0] < n_pad else m
+
+        padded = list(thread_imap(pad, mats))
         diag = np.stack([np.asarray(m.diagonal()) for m in padded])
         inv_diag = np.where(diag != 0.0, 1.0 / np.where(diag == 0, 1, diag), 1.0)
-        lmax = np.array([estimate_lmax(m) for m in padded])
+        lmax = np.array(list(thread_imap(estimate_lmax, padded)))
         levels.append(
             dict(
                 mats=padded, inv_diag=inv_diag, lmax=lmax, n_pad=n_pad,
@@ -301,12 +325,27 @@ def build_hierarchy(
             )
 
     np_dtype = _np_dtype(dtype)
+    sd = a_top_dtype if a_top_dtype is not None else solve_dtype()
+    # the finest level's plane classes serve both its V-cycle operator and
+    # A_top, whose dtypes differ: found once, under the larger class cap
+    top_classes = {}
+    if structured and sd != dtype:
+        L_top = L - 1
+        for a, b in bounds:
+            shape = grids[a].shapes[L_top]
+            plane = 3 * shape[1] * shape[2]
+            cap = max(class_cap(plane, np_dtype),
+                      class_cap(plane, _np_dtype(sd)))
+            top_classes[a, b] = plane_classes(
+                levels[L_top]["mats"][a:b], shape, levels[L_top]["n_pad"],
+                cap)
     dev_levels = []
     for l, lv in enumerate(levels):
         if structured:
             A = _grouped(
                 lambda a, b, lv=lv, l=l: _dia_auto(
-                    lv["mats"][a:b], grids[a].shapes[l], lv["n_pad"], np_dtype
+                    lv["mats"][a:b], grids[a].shapes[l], lv["n_pad"], np_dtype,
+                    classes=top_classes.get((a, b)) if l == L - 1 else None,
                 )
             )
             if l > 0:
@@ -314,12 +353,14 @@ def build_hierarchy(
 
                 def _prols(a, b, l=l, n_f=n_f, n_c=n_c, transpose=False):
                     g0 = grids[a]
-                    mats = []
-                    for bb in range(a, b):
+
+                    def stencil(bb):
                         S = _stencil_matrix(
                             real_prol[bb][l - 1], grids[bb].zmaps[l - 1]
                         )
-                        mats.append(S.T.tocsr() if transpose else S)
+                        return S.T.tocsr() if transpose else S
+
+                    mats = list(thread_imap(stencil, range(a, b)))
                     Sd = _dia_auto(
                         mats, g0.shapes[l], n_f, np_dtype, pad_identity=False
                     )
@@ -355,7 +396,6 @@ def build_hierarchy(
         )
     # Krylov matvec operator in the solve dtype; it aliases the finest level
     # when the two dtypes agree
-    sd = a_top_dtype if a_top_dtype is not None else solve_dtype()
     if sd == dtype:
         A_top = dev_levels[-1].A
     elif structured:
@@ -363,6 +403,7 @@ def build_hierarchy(
             lambda a, b: _dia_auto(
                 levels[-1]["mats"][a:b], grids[a].shapes[-1],
                 levels[-1]["n_pad"], _np_dtype(sd),
+                classes=top_classes.get((a, b)),
             )
         )
     else:

@@ -22,6 +22,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ..utils.pool import thread_imap
 from .ell import broadcast_shapes
 
 # The CUDA kernel's plan (csrc/plane_dia.cu, built once per operator): at
@@ -285,26 +286,27 @@ class _SlabDedup:
         return len(self.reps) - 1
 
 
-def plane_dia_from_csr_list(
+def class_cap(plane: int, dtype) -> int:
+    """The JAX package's cap on a PlaneDia's classes: max(64,
+    PLANE_DIA_CLASS_BYTES // (plane * itemsize))."""
+    return max(64, PLANE_DIA_CLASS_BYTES
+               // max(plane * np.dtype(dtype).itemsize, 1))
+
+
+def plane_classes(
     mats: Sequence[sp.spmatrix],
     shape: tuple[int, int, int],
     n_rows: int,
-    dtype=np.float32,
+    max_classes: int,
     offsets: np.ndarray | None = None,
     pad_identity: bool = True,
-    max_classes: int | None = None,
-) -> "PlaneDia | None":
-    """Build a PlaneDia (CPU tensors) for a batch of same-grid matrices, or
-    None when the class table has more than ``max_classes`` distinct slabs
-    (the caller falls back to another format).  ``max_classes`` defaults to
-    the JAX package's rule, max(64, PLANE_DIA_CLASS_BYTES // (P*itemsize)).
-    ``shape`` = (nz, ny, nx) node grid; active rows are exactly 3*nz*ny*nx,
-    anything beyond (hierarchy padding) follows the Dia tail convention."""
+):
+    """The plane classes of a batch of same-grid matrices: (reps, kz,
+    offsets), ``reps`` the float64 (D, P) slab of each class in order of
+    first appearance, or None when the matrices do not fit the grid or
+    hold more than ``max_classes`` distinct slabs."""
     nz, ny, nx = (int(s) for s in shape)
     P = 3 * ny * nx
-    if max_classes is None:
-        itemsize = np.dtype(dtype).itemsize
-        max_classes = max(64, PLANE_DIA_CLASS_BYTES // max(P * itemsize, 1))
     n_act = nz * P
     if n_act > n_rows or n_act == 0:
         return None
@@ -320,7 +322,10 @@ def plane_dia_from_csr_list(
         (float(np.abs(m.data).max()) if m.nnz else 0.0) for m in mats
     )
     dedup = _SlabDedup(amax)
-    for b, m in enumerate(mats):
+
+    def diagonals(m):
+        """m's (D, n_act) diagonals, or None where its padding is not a
+        bare unit diagonal."""
         c = m.tocoo()
         if m.shape[0] > n_act:
             # hierarchy padding must be a bare unit diagonal
@@ -330,15 +335,20 @@ def plane_dia_from_csr_list(
                 and (c.data[tail] == 1.0).all()
             ):
                 return None
-        vals = np.zeros((D, n_act), np.float64)
         keep = c.row < n_act
-        k = np.searchsorted(
-            offsets, c.col[keep].astype(np.int64) - c.row[keep]
-        )
-        np.add.at(vals, (k, c.row[keep]), c.data[keep])
+        row = c.row[keep].astype(np.int64)
+        k = np.searchsorted(offsets, c.col[keep].astype(np.int64) - row)
+        # the sums of np.add.at into zeros, entry by entry in COO order
+        vals = np.bincount(k * n_act + row, weights=c.data[keep],
+                           minlength=D * n_act).reshape(D, n_act)
         if pad_identity and m.shape[0] < n_act:
             zero_slot = int(np.searchsorted(offsets, 0))
             vals[zero_slot, m.shape[0]:] = 1.0
+        return vals
+
+    for b, vals in enumerate(thread_imap(diagonals, mats)):
+        if vals is None:
+            return None
         v3 = vals.reshape(D, nz, P)
         for z in range(nz):
             slab = np.ascontiguousarray(v3[:, z, :])
@@ -348,11 +358,43 @@ def plane_dia_from_csr_list(
                 if cid + 1 > max_classes:
                     return None
             kz[b, z] = cid
+    return dedup.reps, kz, offsets
+
+
+def plane_dia_from_csr_list(
+    mats: Sequence[sp.spmatrix],
+    shape: tuple[int, int, int],
+    n_rows: int,
+    dtype=np.float32,
+    offsets: np.ndarray | None = None,
+    pad_identity: bool = True,
+    max_classes: int | None = None,
+    classes=None,
+) -> "PlaneDia | None":
+    """Build a PlaneDia (CPU tensors) for a batch of same-grid matrices, or
+    None when the class table has more than ``max_classes`` distinct slabs
+    (the caller falls back to another format).  ``max_classes`` defaults to
+    the JAX package's rule, ``class_cap``.
+    ``shape`` = (nz, ny, nx) node grid; active rows are exactly 3*nz*ny*nx,
+    anything beyond (hierarchy padding) follows the Dia tail convention.
+    ``classes``: the ``plane_classes`` of the same matrices computed with a
+    cap of at least ``max_classes`` (classes only grow, so a larger cap
+    gives the same result where this one would not have stopped)."""
+    nz, ny, nx = (int(s) for s in shape)
+    P = 3 * ny * nx
+    if max_classes is None:
+        max_classes = class_cap(P, dtype)
+    if classes is None:
+        classes = plane_classes(mats, shape, n_rows, max_classes, offsets,
+                                pad_identity)
+    if classes is None or len(classes[0]) > max_classes:
+        return None
+    reps, kz, offsets = classes
     pvals = np.stack(
-        [r.astype(dtype) for r in dedup.reps], axis=0
+        [r.astype(dtype) for r in reps], axis=0
     )   # (C, D, P)
     return PlaneDia(
-        torch.from_numpy(pvals), torch.from_numpy(kz),
+        torch.from_numpy(pvals), torch.from_numpy(kz.copy()),
         tuple(int(o) for o in offsets), n_rows, P,
         tail_identity=pad_identity,
     )
@@ -360,10 +402,15 @@ def plane_dia_from_csr_list(
 
 def dia_offsets(mats: Sequence[sp.spmatrix]) -> np.ndarray:
     """Union of col-row offsets over a batch of square matrices."""
-    offs = [np.zeros(0, np.int64)]
-    for m in mats:
+    def distinct(m):
         c = m.tocoo()
-        offs.append(np.unique(c.col.astype(np.int64) - c.row))
+        # the sorted distinct col - row, through a count over their range
+        n = max(m.shape[0], 1)
+        seen = np.bincount(c.col.astype(np.int64) - c.row + (n - 1),
+                           minlength=n - 1 + max(m.shape[1], 1))
+        return np.nonzero(seen)[0] - (n - 1)
+
+    offs = [np.zeros(0, np.int64)] + list(thread_imap(distinct, mats))
     return np.unique(np.concatenate(offs))
 
 

@@ -14,6 +14,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.pool import thread_imap
+
 # row degree up to which mv runs as per-slot gathers (no (..., n_rows, k)
 # temporary); larger k gathers once and sums over k
 ELL_UNROLL_MAX = 32
@@ -123,7 +125,12 @@ def stack_ells(mats: Sequence[sp.spmatrix], n_rows: int | None = None,
     k = max(kmax, k or 1)
     n = max(m.shape[0] for m in mats) if n_rows is None else n_rows
     nc = max(m.shape[1] for m in mats) if n_cols is None else n_cols
-    parts = [ell_from_csr(m, k=k, n_rows=n) for m in mats]
+    # ell_from_csr sums a CSR's duplicates in place: a matrix listed twice
+    # goes to one thread
+    distinct = {id(m): m for m in mats}
+    done = dict(zip(distinct, thread_imap(
+        lambda m: ell_from_csr(m, k=k, n_rows=n), distinct.values())))
+    parts = [done[id(m)] for m in mats]
     return Ell(
         vals=torch.from_numpy(np.stack([p[0] for p in parts])).to(dtype),
         cols=torch.from_numpy(np.stack([p[1] for p in parts])),

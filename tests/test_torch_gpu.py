@@ -3,8 +3,10 @@ PyTorch version (at the slice's shape and at the edges of its plan and
 tiles), plain ``Dia.mv``'s card branch against its CPU branch, the small
 BLOCK solved on the card against the CPU, the stacked boxes with
 Coulomb friction and with coarse correction variants A and B solved on the
-card against the CPU, and BiCGSTAB, GMRES and the dual-mortar LAGRANGE
-solve on the card against the CPU, and the body axis split over two
+card against the CPU, the coarse correction applied through the
+hierarchy (ComposedTranD / ComposedAccu) on the card against the CPU,
+and BiCGSTAB, GMRES and the dual-mortar LAGRANGE solve on the card
+against the CPU, and the body axis split over two
 ranks sharing the card against one card.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
@@ -283,6 +285,69 @@ def test_coarse_variants_card_match_cpu(solver, musc):
     cpu, gpu = _card_and_cpu_states(build, 800)
     assert cpu.converged
     _assert_card_matches_cpu(cpu, gpu)
+
+
+def test_composed_coarse_operators_card_match_cpu(monkeypatch):
+    """ComposedTranD and ComposedAccu (coarse correction B applied through
+    the hierarchy, on by itself from 2,000,000 padded DOF, as at BLOCK
+    glob_leve=4) forced on for the small BLOCK at glob_leve=2, with the
+    PlaneDia path forced so that the chains between the coarse level and
+    the finest run through K1: the card solve against the CPU's (the same
+    ``it``, u, z, lambda, gamma within 1e-8 of their largest entries), and
+    each operator's ``apply`` on one seeded input within 1e-12 of its
+    largest entry (the chains run in float64)."""
+    _need_card()
+    import ddpca_admm_tpu_torch.solvers.mg as mgmod
+    import ddpca_admm_tpu_torch.sparse.bell as bell
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.multiscale import (
+        ComposedAccu,
+        ComposedTranD,
+    )
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.models.block import (
+        BlockConfig,
+        build_block_model,
+    )
+
+    monkeypatch.setenv("DDPCA_COMPOSE_TRAND_MIN_DOFS", "0")
+    monkeypatch.setattr(bell, "BELL_MAX_BYTES", 0)
+    monkeypatch.setattr(mgmod, "DIA_LATENCY_BYTES", 0)
+    model = build_block_model(
+        BlockConfig(divi=(2, 2, 2), glob_leve=2, doma_numb=(1, 1, 1)))
+    probs, states = {}, {}
+    for dev in ("cpu", "cuda"):
+        prob, meta = build_problem(model.systems, model.regions,
+                                   dole=[1] * len(model.systems),
+                                   musc_sett=2, device=dev)
+        assert isinstance(prob.coarse[0].tranD, ComposedTranD)
+        assert isinstance(prob.coarse[0].accu, ComposedAccu)
+        probs[dev] = prob
+        states[dev] = contact_analysis(prob, tuple(meta.group_modes),
+                                       max_iter=800, device=dev)
+    assert states["cpu"].converged
+    _assert_card_matches_cpu(states["cpu"], states["cuda"])
+
+    rng = np.random.default_rng(11)
+    B, n = probs["cpu"].u_mask.shape
+    u = torch.from_numpy(rng.standard_normal((B, n)))
+    sol = torch.from_numpy(
+        rng.standard_normal(probs["cpu"].coarse[0].forc0.shape[0]))
+    out = {}
+    for dev, prob in probs.items():
+        co = prob.coarse[0]
+        assert len(co.tranD.chain) == len(co.accu.chain) == 1
+        before = K.LAUNCHES
+        out[dev] = (co.tranD.apply(prob.mg, u.to(dev), lambda t: t),
+                    co.accu.apply(sol.to(dev), slice(None)))
+        launched = K.LAUNCHES - before
+    assert launched > 0
+    for y_cpu, y_gpu in zip(out["cpu"], out["cuda"]):
+        assert y_gpu.device.type == "cuda" and y_gpu.shape == y_cpu.shape
+        assert y_gpu.dtype == y_cpu.dtype == torch.float64
+        scale = float(y_cpu.abs().max())
+        assert scale > 0.0
+        assert float((y_gpu.cpu() - y_cpu).abs().max()) <= 1e-12 * scale
 
 
 @pytest.mark.parametrize("solver", ["bicgstab", "gmres"])
