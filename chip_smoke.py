@@ -15,7 +15,9 @@ Phases, one line each with its ``elapsed_s``:
      call before) and cold (a graph that cycles through copies of the
      inputs larger than twice the L2), its bound, the plain version's time
      and, as a yardstick only, the time of ``torch.sparse.mm`` on a CSR
-     tensor of the same matrix, the last two warm;
+     tensor of the same matrix, the last two warm; and that K1's wrapper
+     refuses an x in another dtype than the table's (the main path gives
+     it the table's dtype only);
   3. small   — the small BLOCK (divi 2, glob_leve 1, one core per block) with
      the PlaneDia path forced, solved on the CPU (plain versions) and on the
      card (K1): the same ADMM iteration count and u within 1e-6 max|u|;
@@ -50,11 +52,13 @@ Phases, one line each with its ``elapsed_s``:
      CYLINDER_1 cross-corner variant) and DEHW built by the port's host
      code and solved through the CLI's solve: at the JAX CLI's small
      configuration on the card against the CPU (the CPU solves run in
-     worker processes from the end of the full phase; the runs one
-     refinement above it, held to each example's oracle, are cut since
-     the full phase came).
-     One line per solve, with its cuts from the reference's settings, K1
-     launches and peak device memory;
+     worker processes from the end of the full phase), and the card's
+     state held to the example's oracle: TORSION's analytic twist, BEAM's
+     unsplit solve, CYLINDER's line load and Hertz peak, DEHW's monitors
+     and contact pressures after its fixed iteration count.  The runs one
+     refinement above it are cut since the full phase came.  One line per
+     solve, with its cuts from the reference's settings, K1 launches and
+     peak device memory;
   8. lagrange — the dual-mortar LAGRANGE solver: the stacked boxes at one
      refinement level (BiCGSTAB on the device) on the card against the
      CPU, at both preconditioners and with Coulomb friction, then BLOCK
@@ -376,6 +380,21 @@ def library_case(torch, K, pd, x, label, scale, rel):
     return ms, None
 
 
+def refuse_mixed_dtype(torch, K, pd, x, label) -> None:
+    """K1's wrapper raises, launching nothing, on an x whose dtype is not
+    the table's: the kernel computes in the table's dtype, so the main
+    path can only give it that dtype, the one K1 is held at here."""
+    other = torch.float32 if pd.dtype == torch.float64 else torch.float64
+    before = K.LAUNCHES
+    try:
+        K.plane_dia_mv(pd, x.to(other))
+    except TypeError:
+        check(K.LAUNCHES == before, f"K1 {label}: launched on a mixed call")
+        return
+    fail(f"K1 {label}: a {other} x through a {pd.dtype} table did not "
+         "raise")
+
+
 def phase_kernels(torch, args):
     from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
 
@@ -396,6 +415,7 @@ def phase_kernels(torch, args):
         if why:
             row["library_not_measured"] = why
         rows.append(row)
+        refuse_mixed_dtype(torch, K, pd, x, label)
         del pd, x
         torch.cuda.empty_cache()
     emit("kernels", cases=rows)
@@ -583,6 +603,7 @@ def phase_full(torch, np, args):
     the solve on the card, held to the reference's iteration count and the
     patch test."""
     import gc
+    import resource
 
     from ddpca_admm_tpu_torch.admm.loop import contact_analysis
     from ddpca_admm_tpu_torch.admm.multiscale import (
@@ -594,13 +615,16 @@ def phase_full(torch, np, args):
     from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
     from ddpca_admm_tpu_torch.utils import timing
     from ddpca_admm_tpu_torch.utils.device import to_device
+    from ddpca_admm_tpu_torch.utils.pool import mem_available
 
     timing.reset()
+    avail = mem_available()
     t = time.perf_counter()
     cfg = BlockConfig(divi=(6, 6, 6), glob_leve=FULL_LEVE,
                       doma_numb=(2, 2, 2))
     model = build_block_model(cfg)
     model_s = time.perf_counter() - t
+    rss_model = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     t1 = time.perf_counter()
     # built on the host, then moved to the card as build_problem's device
     # argument does it, to time the upload apart
@@ -660,7 +684,8 @@ def phase_full(torch, np, args):
          solve_s=solve_s, s_per_iteration=solve_s / max(st.it, 1),
          k1_launches=launches, patch_err_rel=err / scale,
          problem_bytes=nbytes, resident_bytes=resident,
-         max_memory_allocated=peak, **host_memory())
+         max_memory_allocated=peak, mem_available_at_build=avail,
+         peak_rss_model=rss_model, **host_memory())
     check(n_dof == FULL_DOF, f"full: {n_dof} DOF, not {FULL_DOF}")
     check(composed, "full: the coarse correction is not ComposedTranD / "
                     f"ComposedAccu ({type(co.tranD).__name__}, "
@@ -863,7 +888,7 @@ def phase_sharding(torch, np, sl):
 
 # The examples' CPU solves run in worker processes beside the card phases
 # (the longest, DEHW, takes minutes on the CPU); each worker runs this many
-# torch threads.
+# torch threads and host-build threads, and this process keeps the rest.
 EXAMPLE_WORKERS = 3
 WORKER_THREADS = 2
 # the card against the CPU: the same iteration count and u, z, lambda,
@@ -949,8 +974,10 @@ def cpu_reference(name: str) -> dict:
     import torch
 
     from ddpca_admm_tpu_torch import cli
+    from ddpca_admm_tpu_torch.utils.pool import THREADS_ENV
 
     torch.set_num_threads(WORKER_THREADS)
+    os.environ[THREADS_ENV] = str(WORKER_THREADS)
     t = time.perf_counter()
     prob, meta, _, _, _ = example_model(name)
     setup_s = time.perf_counter() - t
@@ -986,6 +1013,149 @@ def card_solve(torch, prob, meta, max_iter, moni=False):
         check(launches == 0, f"examples: {launches} K1 launches on a "
                              "problem without PlaneDia operators")
     return st, solve_s, launches, torch.cuda.max_memory_allocated()
+
+
+def full_displacements(meta, bodies, u):
+    """Per body, the nodal displacements (N, 3) in global axes."""
+    out = []
+    for b, (body, s) in enumerate(zip(bodies, meta.systems)):
+        d = s.full_displacement(u[b][: s.n_dof]).reshape(-1, 3).copy()
+        for i, R in body.node_rota.items():
+            d[i] = R @ d[i]
+        out.append(d)
+    return out
+
+
+def torsion_oracle(np, meta, bodies, cfg, u) -> dict:
+    """Tangential displacement at the outer radius of the loaded end face
+    against T l R / (G I_p)."""
+    ut = []
+    for body, d in zip(bodies, full_displacements(meta, bodies, u)):
+        X = body.mesh.coords
+        r = np.hypot(X[:, 0], X[:, 1])
+        sel = (np.abs(r - cfg.oute_radi) < 1e-9) \
+            & (np.abs(X[:, 2] - cfg.axia_leng) < 1e-9)
+        ut.append((-X[sel, 1] * d[sel, 0] + X[sel, 0] * d[sel, 1]) / r[sel])
+    ut = np.concatenate(ut)
+    check(ut.size > 0, "torsion: no node on the loaded outer edge")
+    return dict(twist=float(ut.mean()), analytic_twist=cfg.analytic_twist,
+                twist_ratio=float(ut.mean()) / cfg.analytic_twist)
+
+
+def beam_oracle(np, meta, bodies, cfg, u) -> dict:
+    """The DD solution against the unsplit single-body spsolve (the
+    reference's SOLVE_NODD oracle, examples/BEAM.h:55-57,403-416)."""
+    import scipy.sparse.linalg as spla
+
+    from ddpca_admm_tpu_torch.fem.assembly import assemble_stiffness
+    from ddpca_admm_tpu_torch.fem.constraints import constrain
+    from ddpca_admm_tpu_torch.mesh.hexmesh import HexMesh
+    from ddpca_admm_tpu_torch.models.beam import (
+        _beam_load,
+        straight_grid,
+        twist_map,
+    )
+    from ddpca_admm_tpu_torch.models.simple import Body
+
+    m = HexMesh()
+    m.add_box_grid(np.zeros(3), np.ones(3), cfg.divi,
+                   coords_fn=straight_grid(cfg, np.zeros(3), cfg.divi,
+                                           cfg.divi, (0, 0, 0)))
+    m.refine_uniform(cfg.glob_leve, pattern=0)
+    m.transform(twist_map(cfg, 1))
+    m.transfer()
+    mb = Body(mesh=m, e_mod=cfg.e_mod, nu=cfg.nu)
+    for i, c in enumerate(m.coords):
+        if c[0] <= 1e-10:
+            for k in range(3):
+                mb.cons_dofv[3 * i + k] = 0.0
+    _beam_load(cfg, mb, 0)
+    A = assemble_stiffness(m, mb.e_mod, mb.nu)
+    sysm = constrain(m, A, mb.cons_dofv, mb.exte_forc)
+    u_mono = sysm.full_displacement(
+        spla.spsolve(sysm.cons_stif[-1].tocsc(), sysm.cons_forc)
+    ).reshape(-1, 3)
+    scale = float(np.abs(u_mono).max())
+    worst = 0.0
+    for body, d in zip(bodies, full_displacements(meta, bodies, u)):
+        ids = m.add_nodes(body.mesh.coords)
+        worst = max(worst, float(np.linalg.norm(d - u_mono[ids],
+                                                axis=1).max()))
+    return dict(unsplit_dof=int(sysm.cons_forc.size), max_abs_u=scale,
+                dd_vs_unsplit_rel=worst / scale)
+
+
+def region_pressures(np, meta, st) -> dict:
+    """Per region: (peak normal traction, integrated normal force, active
+    integral points), from the solved gamma."""
+    out = {}
+    for g_i, mode in enumerate(meta.group_modes):
+        gamma = st.groups[g_i].gamma.cpu().numpy()
+        for slot, ri in enumerate(meta.group_region_idx[g_i]):
+            reg = meta.regions[ri].region
+            ip = reg.ip
+            gn = gamma[slot][: ip.n] if mode == "scalar" \
+                else gamma[slot][: 3 * ip.n: 3]
+            out[ri] = dict(fric=float(reg.fric), points=int(ip.n),
+                           active=int((gn > 0).sum()),
+                           p_max=float(gn.max(initial=0.0)),
+                           force=float(gn @ ip.weight))
+    return out
+
+
+def cylinder_oracle(np, meta, cfg, st, cross_corner) -> dict:
+    """Each cylinder contact transmits the line load (mirror halves half
+    each) within 5%, and its peak pressure lies within 0.6-1.3 of Hertz's
+    p_max (the JAX package's tests/test_cylinder_stack.py)."""
+    a, p_max = cfg.hertz
+    pres = region_pressures(np, meta, st)
+    n_cont = 2 if cross_corner else 4
+    f_expect = abs(cfg.load_inte) * cfg.leng / (1 if cross_corner else 2)
+    force_rel = [pres[ri]["force"] / f_expect for ri in range(n_cont)]
+    p_rel = [pres[ri]["p_max"] / p_max for ri in range(n_cont)]
+    check(all(abs(f - 1.0) <= 0.05 for f in force_rel),
+          f"cylinder: contact forces / line load {force_rel}")
+    check(all(0.6 < p < 1.3 for p in p_rel),
+          f"cylinder: contact p_max / Hertz {p_rel}")
+    return dict(hertz_half_width=a, hertz_p_max=p_max,
+                contact_force_over_load=force_rel,
+                contact_p_max_over_hertz=p_rel)
+
+
+def dehw_oracle(np, meta, st) -> dict:
+    """The last monitor row's median and, per contact region, its active
+    integral points and peak pressure."""
+    hist = st.moni_hist.cpu().numpy()[: st.it]
+    check(bool(np.isfinite(hist[-1]).all()), "dehw: non-finite monitors")
+    pres = region_pressures(np, meta, st)
+    contact = {f"region_{ri}": dict(points=v["points"], active=v["active"],
+                                    p_max_Pa=v["p_max"])
+               for ri, v in pres.items() if v["fric"] > 0.0}
+    check(sum(v["active"] for v in contact.values()) > 0,
+          "dehw: no active contact point")
+    return dict(monitor_last_median=float(np.median(hist[-1])),
+                contact_regions=contact)
+
+
+def example_oracle(np, name, meta, bodies, cfg, st) -> dict:
+    """The example's own oracle on a solved state: TORSION's analytic
+    twist, BEAM's unsplit solve, CYLINDER's line load and Hertz peak,
+    DEHW's monitors and contact pressures."""
+    u = st.u.cpu().numpy()
+    if name == "torsion":
+        out = torsion_oracle(np, meta, bodies, cfg, u)
+        check(abs(out["twist_ratio"] - 1.0) <= 1e-3,
+              f"torsion: twist ratio {out['twist_ratio']}")
+    elif name == "beam":
+        out = beam_oracle(np, meta, bodies, cfg, u)
+        check(out["dd_vs_unsplit_rel"] < 2e-3,
+              f"beam: DD against unsplit {out}")
+    elif name.startswith("cylinder"):
+        out = cylinder_oracle(np, meta, cfg, st,
+                              cross_corner=cfg.cross_corner)
+    else:
+        out = dehw_oracle(np, meta, st)
+    return out
 
 
 def compare_states(np, name, card, cpu) -> dict:
@@ -1051,6 +1221,7 @@ def phase_examples(torch, np, refs):
               f"{name}: it {st.it} on the card, {cpu['it']} on the CPU")
         row["card_vs_cpu_rel"] = compare_states(
             np, name, state_arrays(st), cpu)
+        row["oracle"] = example_oracle(np, name, meta, bodies, cfg, st)
         # the CLI's result writers, on the card's state
         with tempfile.TemporaryDirectory() as d:
             cli.write_results(st, meta, bodies, d, moni=(name == "dehw"))
@@ -1281,9 +1452,15 @@ def main() -> int:
     # host memory: the examples' CPU references start after it
     full_launches = phase_full(torch, np, args)
 
-    # the examples' CPU references, computed beside the card phases
+    # the examples' CPU references, computed beside the card phases; this
+    # process's host work keeps the cores they leave
     import multiprocessing
 
+    from ddpca_admm_tpu_torch.utils.pool import THREADS_ENV, host_threads
+
+    cores = host_threads()
+    os.environ[THREADS_ENV] = str(
+        max(1, cores - EXAMPLE_WORKERS * WORKER_THREADS))
     pool = multiprocessing.get_context("spawn").Pool(EXAMPLE_WORKERS)
     try:
         refs = {name: pool.apply_async(cpu_reference, (name,))
@@ -1295,6 +1472,7 @@ def main() -> int:
     finally:
         pool.terminate()
         pool.join()
+        os.environ[THREADS_ENV] = str(cores)
     lagrange_launches = phase_lagrange(torch, np)
     phase_apps(np)
 

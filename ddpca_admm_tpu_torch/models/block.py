@@ -19,7 +19,6 @@ displacement linear in z (the patch test, examples/BLOCK.cpp:43-49).
 
 from __future__ import annotations
 
-from concurrent.futures import as_completed
 from dataclasses import dataclass, field
 from functools import partial
 
@@ -93,6 +92,12 @@ POOL_MIN_DOF = 100_000
 # for glob_leve=4's 352,947 on the card's machine (one body's task alone
 # peaks at 2.59 GB; the workers keep their heaps across tasks).
 TASK_BYTES_PER_DOF = 27_000
+# What this process holds at the end of the build (the regions and the
+# systems the workers send back) per DOF of the model, set aside from the
+# available memory before the workers are counted: 4.19-4.23 GB for
+# glob_leve=3's 1,211,436 DOF, 1.06 GB for glob_leve=2's 180,684
+# (scripts/time_host_build.py, ``peak_rss_model``).
+PARENT_BYTES_PER_DOF = 3_500
 
 
 def _core_index(cfg: BlockConfig, tb: int, g0: int, g1: int, g2: int) -> int:
@@ -352,22 +357,23 @@ def block_dof_estimate(cfg: BlockConfig) -> tuple[int, int]:
 
 def block_workers(cfg: BlockConfig) -> int:
     """The build pool's worker count for ``cfg``: one below POOL_MIN_DOF,
-    else as many as the cores and the available memory allow."""
+    else as many as the cores allow and the available memory holds beside
+    what this process gathers."""
     total, biggest = block_dof_estimate(cfg)
     if total < POOL_MIN_DOF:
         return 1
     n_bodies = 3 * int(np.prod(cfg.doma_numb)) + (6 if cfg.guard_slabs else 0)
-    return host_workers(TASK_BYTES_PER_DOF * biggest, n_bodies)
+    return host_workers(TASK_BYTES_PER_DOF * biggest, n_bodies,
+                        PARENT_BYTES_PER_DOF * total)
 
 
 def build_block_model(cfg: BlockConfig = BlockConfig(),
                       workers: int | None = None) -> BlockModel:
     """The BLOCK model: bodies, regions and constrained systems, built in a
-    pool of ``workers`` processes (default ``block_workers(cfg)``): the
-    meshes' contact surfaces, then the regions, and each body's system as
-    soon as its regions are done — with the same bits at any worker count.
-    ``BlockModel.phases`` holds the seconds of the meshes and of the wait
-    for the last region; the wait for the last system goes to
+    pool of ``workers`` processes (default ``block_workers(cfg)``) in three
+    maps: the meshes' contact surfaces, the regions, the bodies' systems -
+    with the same bits at any worker count.  ``BlockModel.phases`` holds
+    the seconds of the meshes and of the regions; the systems' go to
     ``utils/timing`` under ``assemble_bodies``' tag, so that the phases
     there keep the JAX package's tags, which the command line reports."""
     import time
@@ -398,41 +404,27 @@ def build_block_model(cfg: BlockConfig = BlockConfig(),
                 faces[r, side] = f
         rho = penalty(cfg.char_fact,
                       char_length_of([vol for _, vol, _ in meshes]), 210.0e9)
-        # the largest searches first; a body's system starts once its own
-        # regions are done, beside the regions still running
+        # the largest searches first
         order = sorted(range(len(specs)), key=lambda r: -(
             faces[r, 0].shape[0] + faces[r, 1].shape[0]))
-        futures = {
-            pool.submit(_region_task, specs[r], rho, faces[r, 0],
-                        meshes[specs[r][0]][0], faces[r, 1],
-                        meshes[specs[r][1]][0]): r
-            for r in order
-        }
+        t = time.perf_counter()
+        done = pool.map(_region_task, [
+            (specs[r], rho, faces[r, 0], meshes[specs[r][0]][0],
+             faces[r, 1], meshes[specs[r][1]][0]) for r in order
+        ])
         del meshes, faces
         regions: list[RegionOps] = [None] * len(specs)
-        waiting = [{r for r, *_ in planes[b]} for b in range(n_bodies)]
-        systems = {}
-
-        def start_system(b):
-            own = [regions[r] for r in sorted({r for r, *_ in planes[b]})]
-            systems[b] = pool.submit(_system_task, cfg, b,
-                                     penalty_masses(b, own))
-
-        for b in range(n_bodies):
-            if not waiting[b]:
-                start_system(b)
-        t = time.perf_counter()
-        for fut in as_completed(futures):
-            r = futures[fut]
-            regions[r] = fut.result()
-            for b in specs[r][:2]:
-                waiting[b].discard(r)
-                if not waiting[b]:
-                    start_system(b)
+        for r, reg in zip(order, done):
+            regions[r] = reg
+        del done
         phases.append(("BLOCK regions (CONTACT_SEARCH + operators)",
                        time.perf_counter() - t))
         with phase("MCONTACT::ESTABLISH bodies (TRANSFER+STIF_MATR+CONSTRAINT)"):
-            built = [systems[b].result() for b in range(n_bodies)]
+            built = pool.map(_system_task, [
+                (cfg, b, penalty_masses(b, [
+                    regions[r] for r in sorted({r for r, *_ in planes[b]})
+                ])) for b in range(n_bodies)
+            ])
     return BlockModel(
         cfg=cfg, bodies=[body for body, _ in built], regions=regions,
         systems=[system for _, system in built], n_core=n_core,

@@ -57,22 +57,26 @@ def plane_dia_mv_plain(pd, x: torch.Tensor) -> torch.Tensor:
 def plane_dia_mv(pd, x: torch.Tensor) -> torch.Tensor:
     """y = pd @ x for x of shape (B, n_rows), B = pd.kz.shape[0].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which computes in the table's dtype: x is cast to it and y back to the
-    promoted dtype, as the JAX package's Pallas path does."""
+    x must be in the table's dtype, on every device: the kernel computes
+    in it, and the plain version in the promoted dtype, so a mixed call
+    would round differently on the card (a float64 x through a float32
+    table keeps float32 noise) - it raises instead.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     global LAUNCHES
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"plane_dia_mv: unsupported device {x.device}")
+    if x.dtype != pd.dtype:
+        raise TypeError(f"plane_dia_mv: x is {x.dtype}, the table "
+                        f"{pd.dtype}: cast x to the table's dtype")
     if x.device.type == "cpu":
         return plane_dia_mv_plain(pd, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"plane_dia_mv: unsupported device {x.device}")
     C, D, P = pd.vals.shape
     B, nz = pd.kz.shape
     n = pd.n_rows
     if pd.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"plane_dia_mv: table dtype {pd.dtype} is not "
                         f"float32 or float64")
-    out_dtype = torch.promote_types(pd.dtype, x.dtype)
-    x = x.to(pd.dtype).contiguous()
+    x = x.contiguous()
     if tuple(x.shape) != (B, n):
         raise ValueError(
             f"plane_dia_mv: x shape {tuple(x.shape)} must be (B, n_rows) = "
@@ -116,4 +120,4 @@ def plane_dia_mv(pd, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"plane_dia_mv: kernel launch failed, "
                            f"cudaError {err}")
     LAUNCHES += 1
-    return y.to(out_dtype)
+    return y

@@ -10,6 +10,12 @@ this process, on data too large to send to a worker.  Every task is a pure
 function of its arguments, so the results are the same bits whatever the
 worker count; a task that fails or a worker that dies makes the call
 raise.
+
+``host_workers`` and ``thread_imap`` size themselves from the process's
+allowance of cores, ``host_threads()``: the environment value ``DDPCA_HOST_THREADS`` where it
+is set, else the cores this process may run on.  ``HostPool``'s workers
+run with an allowance of 1, so a task's own ``thread_imap`` runs inline; a
+caller that runs other processes beside the build lowers its allowance.
 """
 
 from __future__ import annotations
@@ -19,11 +25,23 @@ import contextlib
 import itertools
 import multiprocessing
 import os
-from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-# one BLAS/OpenMP thread per worker: the pool already fills the cores
+# the allowance of cores of this process's host build (unset: all of them)
+THREADS_ENV = "DDPCA_HOST_THREADS"
+# one BLAS/OpenMP thread and an allowance of one per worker: the pool
+# already fills the cores
 _WORKER_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
-               "MKL_NUM_THREADS": "1"}
+               "MKL_NUM_THREADS": "1", THREADS_ENV: "1"}
+
+
+def host_threads() -> int:
+    """The cores this process's host build may use: ``DDPCA_HOST_THREADS``
+    where it is set, else the cores this process may run on."""
+    value = os.environ.get(THREADS_ENV)
+    if value:
+        return max(1, int(value))
+    return len(os.sched_getaffinity(0))
 
 
 def mem_available() -> int:
@@ -38,13 +56,15 @@ def mem_available() -> int:
     return 0
 
 
-def host_workers(task_bytes: int, n_tasks: int) -> int:
+def host_workers(task_bytes: int, n_tasks: int, parent_bytes: int) -> int:
     """Workers for ``n_tasks`` tasks of about ``task_bytes`` peak memory
-    each: the cores this process may run on, capped by what the machine's
-    available memory holds and by the task count."""
-    cores = len(os.sched_getaffinity(0))
+    each: ``host_threads()``, capped by the task count and by what the
+    machine's available memory holds once this process has grown by
+    ``parent_bytes`` (what it gathers of the tasks' results)."""
+    cores = host_threads()
     avail = mem_available()
-    by_mem = avail // max(int(task_bytes), 1) if avail else cores
+    by_mem = ((avail - int(parent_bytes)) // max(int(task_bytes), 1)
+              if avail else cores)
     return max(1, min(cores, int(by_mem), int(n_tasks)))
 
 
@@ -64,9 +84,8 @@ def _env(values: dict):
 
 class HostPool:
     """``with HostPool(workers) as pool: pool.map(fn, [args, ...])`` —
-    ``fn(*args)`` for each tuple, results in order; ``pool.submit`` for one
-    task.  ``fn`` must be a module-level function (it is pickled by name
-    into spawned workers)."""
+    ``fn(*args)`` for each tuple, results in order.  ``fn`` must be a
+    module-level function (it is pickled by name into spawned workers)."""
 
     def __init__(self, workers: int):
         self.workers = max(1, int(workers))
@@ -83,32 +102,23 @@ class HostPool:
             self._ex.shutdown(wait=True, cancel_futures=True)
             self._ex = None
 
-    def submit(self, fn, *args) -> Future:
-        """``fn(*args)`` in a worker; with one worker, here and now (the
-        future holds its result or its exception)."""
+    def map(self, fn, arg_tuples) -> list:
+        """``fn(*args)`` for each tuple, results in order; with one worker,
+        here and now."""
         if self._ex is None:
-            fut = Future()
-            try:
-                fut.set_result(fn(*args))
-            except Exception as e:  # raised again by fut.result()
-                fut.set_exception(e)
-            return fut
+            return [fn(*a) for a in arg_tuples]
         # workers start at a submit, with the environment of that moment
         with _env(_WORKER_ENV):
-            return self._ex.submit(fn, *args)
-
-    def map(self, fn, arg_tuples) -> list:
-        futures = [self.submit(fn, *a) for a in arg_tuples]
+            futures = [self._ex.submit(fn, *a) for a in arg_tuples]
         return [f.result() for f in futures]
 
 
-def thread_imap(fn, items, workers: int | None = None):
+def thread_imap(fn, items):
     """``fn(x)`` for each of ``items``, yielded in order, computed by
-    ``workers`` threads (default: the cores this process may run on) with
-    at most that many results ahead of the consumer."""
+    ``host_threads()`` threads with at most that many results ahead of the
+    consumer."""
     items = list(items)
-    if workers is None:
-        workers = len(os.sched_getaffinity(0))
+    workers = host_threads()
     if workers <= 1 or len(items) <= 1:
         for x in items:
             yield fn(x)

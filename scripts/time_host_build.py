@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's BLOCK menu-1 host build, phase by phase.
 
-    python3 scripts/time_host_build.py [--glob-leve 3] [--device cpu]
+    python3 scripts/time_host_build.py [--glob-leve 3] [--workers N]
 
 Builds ``BlockConfig(divi=(6,6,6), glob_leve=L, doma_numb=(2,2,2))`` with
 ``build_block_model`` and ``build_problem(dole=[1]*30, musc_sett=2)`` (the
@@ -9,8 +9,9 @@ problem of ``chip_smoke.py``'s ``slice`` and ``full`` phases) and prints one
 JSON line: the seconds of each phase the build records
 (``BlockModel.phases`` and ``utils/timing.PHASES``), the whole build's
 seconds, the build pool's worker count, the DOF count, the peak resident
-memory of this process and of its largest worker, and the machine's
-``MemTotal``.  Imports nothing of JAX.
+memory of this process through ``build_block_model`` and through the
+whole build, that of its largest worker, and the machine's ``MemTotal``.
+The problem is built on the CPU.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ def mem_total() -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--glob-leve", type=int, default=3)
-    ap.add_argument("--device", default="cpu")
     ap.add_argument("--workers", type=int, default=None,
                     help="build pool size (default: from the cores and "
                          "the available memory)")
@@ -55,23 +55,22 @@ def main() -> int:
     # a tree from before the build pool builds in one process
     workers = getattr(model, "workers", 1)
     t_model = time.perf_counter() - t
+    own_model = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     prob, meta = build_problem(model.systems, model.regions,
                                dole=[1] * len(model.systems), musc_sett=2,
-                               device=args.device)
-    if args.device.startswith("cuda"):
-        import torch
-        torch.cuda.synchronize()
+                               device="cpu")
     total = time.perf_counter() - t
     own = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     kids = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
     print(json.dumps(dict(
-        glob_leve=args.glob_leve, device=args.device, workers=workers,
+        glob_leve=args.glob_leve, workers=workers,
         dof=int(sum(s.n_dof for s in meta.systems)),
         bodies=len(meta.systems), n_pad=meta.n_pad,
         build_block_model_s=t_model, setup_s=total,
         phases=[[tag, dt] for tag, dt in
                 getattr(model, "phases", []) + timing.reset()],
-        peak_rss=own, peak_rss_worker=kids, mem_total=mem_total(),
+        peak_rss_model=own_model, peak_rss=own, peak_rss_worker=kids,
+        mem_total=mem_total(),
         cpus=len(os.sched_getaffinity(0)),
     )), flush=True)
     return 0

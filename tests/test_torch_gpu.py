@@ -147,25 +147,28 @@ def test_k1_refuses_offsets_past_two_planes_on_card():
 
 
 def test_k1_wrapper_casts_and_refuses_on_card():
-    """The wrapper computes in the table's dtype and returns the promoted
-    dtype; it refuses a half-precision table and a batch that is not the
+    """The wrapper computes in the table's dtype and returns it; it refuses
+    an x of another dtype (the plain version would promote it, the kernel
+    would not), a half-precision table and a batch that is not the
     table's."""
     _need_card()
     rng = np.random.default_rng(1)
     pd = _plane_dia(rng, torch.float32, 4, (4, 3, 3), 2, 120, True)
     x = torch.from_numpy(rng.standard_normal((2, 120))).cuda()
-    y = K.plane_dia_mv(pd, x)
-    assert y.dtype == torch.float64
+    with pytest.raises(TypeError):
+        K.plane_dia_mv(pd, x)
+    y = K.plane_dia_mv(pd, x.float())
+    assert y.dtype == torch.float32
     y_plain = K.plane_dia_mv_plain(pd, x.float())
     torch.cuda.synchronize()
     scale = float(y_plain.abs().max())
-    assert float((y.float() - y_plain).abs().max()) <= 1e-5 * scale
+    assert float((y - y_plain).abs().max()) <= 1e-5 * scale
     with pytest.raises(ValueError):
         K.plane_dia_mv(pd, torch.zeros((3, 120), dtype=torch.float32,
                                        device="cuda"))
     pd.vals = pd.vals.half()
     with pytest.raises(TypeError):
-        K.plane_dia_mv(pd, x)
+        K.plane_dia_mv(pd, x.half())
 
 
 @pytest.mark.parametrize("tail", [True, False])

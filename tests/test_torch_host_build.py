@@ -160,3 +160,38 @@ def test_host_pool_raises_a_task_failure():
         assert pool.map(divmod, [(7, 2), (9, 4)]) == [(3, 1), (2, 1)]
         with pytest.raises(ValueError, match="task 3 failed"):
             pool.map(_fails, [(3,)])
+
+
+def _worker_allowance(_):
+    from ddpca_admm_tpu_torch.utils.pool import host_threads
+
+    return host_threads()
+
+
+def test_host_threads_follow_the_allowance(monkeypatch):
+    """The pool's workers run with an allowance of one core, so their own
+    thread_imap runs inline; a process's allowance (DDPCA_HOST_THREADS)
+    bounds its threads and its workers, and the workers are counted after
+    the memory this process will gather is set aside."""
+    import threading
+
+    from ddpca_admm_tpu_torch.utils import pool as P
+
+    with HostPool(2) as pool:
+        assert pool.map(_worker_allowance, [(0,), (1,)]) == [1, 1]
+    monkeypatch.setenv(P.THREADS_ENV, "1")
+    assert P.host_threads() == 1
+    main = threading.get_ident()
+    assert set(P.thread_imap(lambda _: threading.get_ident(),
+                             range(4))) == {main}
+    monkeypatch.setenv(P.THREADS_ENV, "3")
+    names = set(P.thread_imap(lambda _: threading.get_ident(), range(64)))
+    assert main not in names and 1 <= len(names) <= 3
+    assert list(P.thread_imap(lambda x: x * x, range(10))) == [
+        x * x for x in range(10)]
+    monkeypatch.setattr(P, "mem_available", lambda: 10 * 2 ** 30)
+    assert P.host_workers(2 ** 30, 8, 0) == 3
+    monkeypatch.setenv(P.THREADS_ENV, "16")
+    assert P.host_workers(2 ** 30, 8, 0) == 8
+    assert P.host_workers(2 ** 30, 8, 4 * 2 ** 30) == 6
+    assert P.host_workers(2 ** 30, 8, 20 * 2 ** 30) == 1

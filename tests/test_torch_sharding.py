@@ -201,6 +201,17 @@ def _in_width(op):
     return op.n_rows
 
 
+def _dtype(op):
+    """The dtype of an operator's tables, the one it takes x in."""
+    if isinstance(op, BatchBlocks):
+        return _dtype(op.ops[0])
+    if isinstance(op, StructuredProl):
+        return _dtype(op.S)
+    if isinstance(op, StructuredRest):
+        return _dtype(op.St)
+    return op.dtype
+
+
 def _kinds(op):
     if isinstance(op, BatchBlocks):
         return {"BatchBlocks"}.union(*(_kinds(o) for o in op.ops))
@@ -230,7 +241,7 @@ def test_sliced_operators_match_full(case, force_plane_dia):
     rng = np.random.default_rng(0)
     ops = _operators(port)
     xs = {label: torch.from_numpy(rng.standard_normal((B, _in_width(op))))
-          for label, op in ops}
+          .to(_dtype(op)) for label, op in ops}
     ys = {label: op.mv(xs[label]) for label, op in ops}
     accu = port.coarse[0].accu if port.coarse else None
     sol = None

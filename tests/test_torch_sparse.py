@@ -154,6 +154,25 @@ def test_plane_dia_builder_dedup_and_cap_match_jax():
     assert dia.DEDUP_RTOL == jdia.DEDUP_RTOL
 
 
+def test_plane_dia_wrapper_refuses_mixed_dtypes():
+    """x in another dtype than the table's raises on the CPU too, where the
+    plain version would promote it: the card's kernel computes in the
+    table's dtype, so a mixed caller would round differently there."""
+    rng, mats = _grid_mats(2, 2, (4, 2, 2), 0)
+    n = mats[0].shape[0]
+    x = rng.standard_normal((2, n))
+    for dtype, other in ((np.float32, torch.float64),
+                         (np.float64, torch.float32)):
+        tp = dia.plane_dia_from_csr_list(mats, (4, 2, 2), n, dtype,
+                                         max_classes=8)
+        with pytest.raises(TypeError):
+            plane_dia_mv(tp, torch.from_numpy(x).to(other))
+        with pytest.raises(TypeError):
+            tp.mv(torch.from_numpy(x).to(other))
+        y = plane_dia_mv(tp, torch.from_numpy(x).to(tp.dtype))
+        assert y.dtype == tp.dtype
+
+
 def test_plane_dia_wrapper_refuses_bad_calls():
     """Shape and dtype checks of the wrapper (the CPU path is plain, so a
     meta tensor stands in for a device tensor the kernel cannot take)."""
