@@ -21,12 +21,22 @@ Phases, one line each with its ``elapsed_s``:
   3. small   — the small BLOCK (divi 2, glob_leve 1, one core per block) with
      the PlaneDia path forced, solved on the CPU (plain versions) and on the
      card (K1): the same ADMM iteration count and u within 1e-6 max|u|;
+     ``small_f32``: the same in float32 (``build_problem(dtype=
+     torch.float32)``, the JAX package's accelerator path), ``it`` within
+     1 and u within 1e-4 max|u|;
   4. slice   — the BLOCK menu-1 problem at glob_leve=2 (180,684 DOF, 30
      bodies, MULTISCALE_1 at doleMcsc=1) built by the port's own host code,
      K1 held against its plain version on every PlaneDia operator of the
      problem and timed there warm and cold, then solved on the card through ``contact_analysis``: it must
      converge in 19-21 ADMM iterations through K1 and pass the patch test
-     (u_z = p z / E);
+     (u_z = p z / E); ``slice_f32``: the same host model's problem in
+     float32, built by phase on the host, uploaded and solved through K1's
+     float32 entry point: every floating tensor float32 with A_top the
+     finest level's operator (a composed coarse correction keeps its
+     float64 A for F^T A u), convergence, u within 3e-4 max|u| of the
+     float64 solve, the patch test within 3e-4, K1 launched; ``it``,
+     ``inner_iters``, seconds, K1 launches, ``problem_bytes`` (floating
+     and integer) and peak card memory on the line;
   5. full    — BLOCK menu-1 at the reference's own size, glob_leve=4
      (8,809,452 DOF): the host build in the port's process pool (its
      phases, worker count and peak host memory on the line), K1 held
@@ -35,7 +45,9 @@ Phases, one line each with its ``elapsed_s``:
      through the hierarchy (ComposedTranD / ComposedAccu), and the solve on
      the card: 24-26 ADMM iterations (the reference's 25) through K1 and
      the patch test; the problem's bytes by placement and the peak card
-     memory;
+     memory; then ``full_f32``: the float64 problem freed (its u kept on
+     the host), the same host model's problem in float32, as
+     ``slice_f32``;
   6. sharding — the body axis split over ranks that share the card
      (``parallel/sharding.py``, gloo; NCCL where every rank has a card):
      ``graft_entry.dryrun_multichip`` at 2 and 4 ranks (two chain
@@ -66,7 +78,8 @@ Phases, one line each with its ``elapsed_s``:
      card at both preconditioners, held to the patch test and the
      expected contact states; no K1 launch (every operator is ELL);
   9. apps    — DEHW's APPS eigen-analysis (``dehw --apps coarse``) through
-     the port's command line, host code, at the small grid.
+     the port's command line, host code, at the small grid, computed in
+     the examples' CPU pool beside the card phases.
 
 Then the ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check ends the run
@@ -453,32 +466,43 @@ def phase_small(torch, np):
     cfg = BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1))
     model = build_block_model(cfg)
     dole = [0] * len(model.systems)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        prob, meta = build_problem(model.systems, model.regions, dole=dole,
-                                   device=dev)
-        ops = prob.mg.A_top.ops
-        check(any(type(op).__name__ == "PlaneDia" for op in ops),
-              "small BLOCK: the PlaneDia path was not taken")
-        K.LAUNCHES = 0
-        st = contact_analysis(prob, tuple(meta.group_modes), max_iter=1500,
-                              device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[dev] = (st, K.LAUNCHES)
+    # float64 (the port's default), then the float32 solve path: its gates
+    # allow the rounding of a float32 solve, whose criterion is looser
+    for label, dtype, it_slack, tol in (
+            ("small", torch.float64, 0, 1e-6),
+            ("small_f32", torch.float32, 1, 1e-4)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            prob, meta = build_problem(model.systems, model.regions,
+                                       dole=dole, device=dev, dtype=dtype)
+            ops = prob.mg.A_top.ops
+            check(any(type(op).__name__ == "PlaneDia" for op in ops),
+                  f"{label}: the PlaneDia path was not taken")
+            check(prob.mg.A_top.dtype == dtype,
+                  f"{label}: A_top is {prob.mg.A_top.dtype}")
+            K.LAUNCHES = 0
+            st = contact_analysis(prob, tuple(meta.group_modes),
+                                  max_iter=1500, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[dev] = (st, K.LAUNCHES)
+        (s_cpu, _), (s_gpu, launches) = out["cpu"], out["cuda"]
+        u_cpu = s_cpu.u.double().numpy()
+        u_gpu = s_gpu.u.cpu().double().numpy()
+        scale = float(np.abs(u_cpu).max())
+        err = float(np.abs(u_gpu - u_cpu).max())
+        emit(label, it_cpu=s_cpu.it, it_cuda=s_gpu.it,
+             inner_iters_cpu=s_cpu.inner_iters,
+             inner_iters_cuda=s_gpu.inner_iters,
+             max_abs_du=err, max_abs_u=scale, k1_launches=launches)
+        check(s_cpu.converged and s_gpu.converged,
+              f"{label}: no convergence")
+        check(abs(s_cpu.it - s_gpu.it) <= it_slack,
+              f"{label}: it {s_gpu.it} on the card, {s_cpu.it} on the CPU")
+        check(err <= tol * scale,
+              f"{label}: max|du| = {err} > {tol}*{scale}")
+        check(launches > 0, f"{label}: K1 was not launched")
     restore_formats(saved)
-    (s_cpu, _), (s_gpu, launches) = out["cpu"], out["cuda"]
-    u_cpu, u_gpu = s_cpu.u.numpy(), s_gpu.u.cpu().numpy()
-    scale = float(np.abs(u_cpu).max())
-    err = float(np.abs(u_gpu - u_cpu).max())
-    check(s_cpu.converged and s_gpu.converged, "small BLOCK: no convergence")
-    check(s_cpu.it == s_gpu.it,
-          f"small BLOCK: it {s_gpu.it} on the card, {s_cpu.it} on the CPU")
-    check(err <= 1e-6 * scale, f"small BLOCK: max|du| = {err} > 1e-6*{scale}")
-    check(launches > 0, "small BLOCK: K1 was not launched")
-    emit("small", it_cpu=s_cpu.it, it_cuda=s_gpu.it,
-         inner_iters_cpu=s_cpu.inner_iters, inner_iters_cuda=s_gpu.inner_iters,
-         max_abs_du=err, max_abs_u=scale, k1_launches=launches)
 
 
 def plane_dias(prob):
@@ -509,6 +533,9 @@ def plane_dias(prob):
         for name in ("tranD", "accu"):
             for i, op in enumerate(getattr(getattr(co, name), "chain", ())):
                 visit(op, f"coarse {name} chain {i}")
+        A = getattr(co.tranD, "A", None)
+        if A is not None and A is not mg.A_top:
+            visit(A, "coarse tranD A (float64)")
     return found
 
 
@@ -569,6 +596,100 @@ def phase_slice(torch, np, args):
     check(err <= 1e-4 * scale, f"slice: patch test error {err / scale}")
     return dict(launches=launches, prob=prob, meta=meta, model=model,
                 cfg=cfg, state=st, u=u, solve_s=solve_s, peak=peak)
+
+
+# the float32 solve path against the float64 solve of the same size: the
+# JAX package's bound on float32 against float64 (tests/test_precision.py)
+F32_TOL = 3e-4
+
+
+def phase_f32(torch, np, label, model, cfg, u64, max_iter):
+    """BLOCK menu-1 in float32 (``build_problem(dtype=torch.float32)``, the
+    JAX package's accelerator path) from a host model already built: the
+    problem built on the host by phase, cast there, uploaded (timed
+    apart), and solved on the card through K1's float32 entry point.
+    Gates: every floating tensor float32 with A_top the finest level's
+    operator (apart from the composed coarse correction's float64 A, whose
+    dtype is checked too), convergence within ``max_iter``, u within
+    F32_TOL max|u| of the float64 solve ``u64``, the patch test within
+    F32_TOL, K1 launched."""
+    import gc
+
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+    from ddpca_admm_tpu_torch.utils import timing
+    from ddpca_admm_tpu_torch.utils.device import to_device
+
+    # what earlier phases keep on the card (the slice's float64 problem
+    # stays for the sharding phase): the peak below includes it
+    before = torch.cuda.memory_allocated()
+    timing.reset()
+    t = time.perf_counter()
+    prob, meta = build_problem(
+        model.systems, model.regions,
+        dole=[1] * len(model.systems),   # doleMcsc=1 (BLOCK.cpp:69-71)
+        musc_sett=2,                     # MULTISCALE_1 (BLOCK.h:38)
+        device="cpu", dtype=torch.float32,
+    )
+    t2 = time.perf_counter()
+    dtypes = sorted(str(d) for d in float_dtypes(torch, prob))
+    aliased = prob.mg.A_top is prob.mg.levels[-1].A
+    product_dtype = str(getattr(prob.coarse[0].tranD, "A", prob.mg.A_top)
+                        .dtype)
+    prob = to_device(prob, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t2
+    problem_s = time.perf_counter() - t
+    phases = [[tag, dt] for tag, dt in timing.reset()] + [
+        ["upload", upload_s]]
+    nbytes = problem_bytes(torch, prob)
+    resident = torch.cuda.memory_allocated()
+    co = prob.coarse[0]
+
+    modes = tuple(meta.group_modes)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = 0
+    t = time.perf_counter()
+    st = contact_analysis(prob, modes, max_iter=max_iter, device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    launches = K.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+
+    u = st.u.cpu().double().numpy()
+    err, scale = patch_error(np, cfg, model, meta, u, label)
+    u_scale = float(np.abs(u64).max())
+    du = float(np.abs(u - u64).max())
+    emit(label, glob_leve=cfg.glob_leve, dtypes=dtypes,
+         a_top_aliased=aliased, coarse_product_dtype=product_dtype,
+         problem_s=problem_s, setup_phases=phases,
+         coarse_tranD=type(co.tranD).__name__,
+         coarse_accu=type(co.accu).__name__,
+         coarse_ddmg=co.mg is not None, it=st.it, converged=st.converged,
+         inner_iters=st.inner_iters, solve_s=solve_s,
+         s_per_iteration=solve_s / max(st.it, 1), k1_launches=launches,
+         max_abs_du_vs_f64=du, max_abs_u_f64=u_scale,
+         patch_err_rel=err / scale, problem_bytes=nbytes,
+         resident_before_bytes=before, resident_bytes=resident,
+         max_memory_allocated=peak)
+    check(dtypes == ["torch.float32"],
+          f"{label}: floating tensors in {dtypes}, not float32 alone")
+    check(aliased, f"{label}: A_top is not the finest level's operator")
+    check(product_dtype == "torch.float64" or type(co.tranD).__name__ != (
+        "ComposedTranD"), f"{label}: the composed F^T A u runs in "
+        f"{product_dtype}")
+    check(st.converged, f"{label}: no convergence in {st.it} iterations")
+    check(launches > 0, f"{label}: K1 was not launched on the path")
+    check(du <= F32_TOL * u_scale,
+          f"{label}: u {du / u_scale} of max|u| from the float64 solve")
+    check(err <= F32_TOL * scale, f"{label}: patch test error {err / scale}")
+    del prob, meta, st, co
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the reference's own BLOCK size (examples/BLOCK.cpp compiles glob_leve=4):
@@ -695,10 +816,16 @@ def phase_full(torch, np, args):
           f"full: it = {st.it}, not in {FULL_IT[0]}-{FULL_IT[1]}")
     check(launches > 0, "full: K1 was not launched on the path")
     check(err <= 1e-4 * scale, f"full: patch test error {err / scale}")
-    del prob, meta, model, st, co
+    # the float32 solve of the same host model: the float64 problem goes
+    # first, its u stays on the host
+    del prob, meta, st, co
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    f32_launches = phase_f32(torch, np, "full_f32", model, cfg, u,
+                             FULL_MAX_ITER)
+    del model
+    gc.collect()
+    return launches, f32_launches
 
 
 def patch_error(np, cfg, model, meta, u, label):
@@ -726,21 +853,39 @@ SHARD_TIMEOUT = 300.0
 SHARD_WORLD = 2
 
 
+def float_dtypes(torch, prob) -> set:
+    """The dtypes of a problem's floating tensors, apart from the float64
+    operator of F^T A u in a composed coarse correction
+    (``ComposedTranD.A``, float64 in either solve dtype)."""
+    from ddpca_admm_tpu_torch.utils.device import tree_map
+
+    found = set()
+    keep = [co.tranD.A for co in prob.coarse or ()
+            if type(co.tranD).__name__ == "ComposedTranD"]
+    tree_map(lambda t: found.add(t.dtype) if t.is_floating_point() else None,
+             prob, keep=keep)
+    return found
+
+
 def problem_bytes(torch, prob) -> dict:
     """Bytes of a problem's tensors by placement over ranks: the
     body-batched fields and the hierarchy (both sliced), the PlaneDia class
     tables of the hierarchy (whole on every rank), the region groups and
-    the coarse correction (replicated).  A storage that two fields share
-    counts once, under the first."""
+    the coarse correction (replicated); under ``floating`` and ``integer``
+    the same split of the floating and of the integer and bool tensors.  A
+    storage that two fields share counts once, under the first."""
     import numpy as np
 
     seen, sizes = set(), {}
+    kinds = {"floating": {}, "integer": {}}
 
     def add(key, t):
         store = t.untyped_storage()
         if store.data_ptr() not in seen:
             seen.add(store.data_ptr())
             sizes[key] = sizes.get(key, 0) + store.nbytes()
+            kind = kinds["floating" if t.is_floating_point() else "integer"]
+            kind[key] = kind.get(key, 0) + store.nbytes()
 
     def walk(key, obj):
         if isinstance(obj, torch.Tensor):
@@ -764,8 +909,9 @@ def problem_bytes(torch, prob) -> dict:
     walk("mg_sliced", prob.mg)
     walk("groups", prob.groups)
     walk("coarse", prob.coarse)
-    sizes["total"] = sum(sizes.values())
-    return sizes
+    for part in (sizes, *kinds.values()):
+        part["total"] = sum(part.values())
+    return dict(sizes, **kinds)
 
 
 def k1_rank_hook(prob, shard):
@@ -1385,16 +1531,21 @@ def phase_lagrange(torch, np):
     return launches_by_path
 
 
-def phase_apps(np):
-    """DEHW's APPS eigen-analysis through the port's command line, in
-    process, at the small grid (host code: the check is that it runs on
-    this machine's scipy without JAX)."""
+def apps_run() -> dict:
+    """Worker process: DEHW's APPS eigen-analysis through the port's
+    command line, in process, at the small grid."""
     import contextlib
     import io
     import tempfile
 
-    from ddpca_admm_tpu_torch import cli
+    import numpy as np
+    import torch
 
+    from ddpca_admm_tpu_torch import cli
+    from ddpca_admm_tpu_torch.utils.pool import THREADS_ENV
+
+    torch.set_num_threads(WORKER_THREADS)
+    os.environ[THREADS_ENV] = str(WORKER_THREADS)
     t = time.perf_counter()
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as d:
@@ -1404,9 +1555,16 @@ def phase_apps(np):
         summary = json.loads(buf.getvalue().strip().splitlines()[-1])
         freq = np.loadtxt(os.path.join(d, "resuFreq.txt"), ndmin=2)
         files = os.listdir(d)
-    modes = [f for f in files if f.startswith("resuDisp_")]
+    return dict(seconds=seconds, summary=summary, freq=freq, files=files)
+
+
+def phase_apps(np, run):
+    """Checks ``apps_run``'s result (host code: the check is that it runs
+    on this machine's scipy without JAX)."""
+    summary, freq = run["summary"], run["freq"]
+    modes = [f for f in run["files"] if f.startswith("resuDisp_")]
     n_bodies = len({f.rsplit("-", 1)[1] for f in modes})
-    emit("apps", command="dehw --apps coarse", seconds=seconds,
+    emit("apps", command="dehw --apps coarse", seconds=run["seconds"],
          frequencies=summary["frequencies"],
          correlations=summary["correlations"], mode_files=len(modes),
          bodies=n_bodies)
@@ -1448,9 +1606,11 @@ def main() -> int:
     phase_small(torch, np)
     sl = phase_slice(torch, np, args)
     launches = sl["launches"]
+    slice_f32_launches = phase_f32(torch, np, "slice_f32", sl["model"],
+                                   sl["cfg"], sl["u"], 60)
     # the host build of the full phase takes every core and most of the
     # host memory: the examples' CPU references start after it
-    full_launches = phase_full(torch, np, args)
+    full_launches, full_f32_launches = phase_full(torch, np, args)
 
     # the examples' CPU references, computed beside the card phases; this
     # process's host work keeps the cores they leave
@@ -1465,16 +1625,18 @@ def main() -> int:
     try:
         refs = {name: pool.apply_async(cpu_reference, (name,))
                 for name in EXAMPLES}
+        apps = pool.apply_async(apps_run)
         sharding_launches = phase_sharding(torch, np, sl)
         del sl
         torch.cuda.empty_cache()
         example_launches = phase_examples(torch, np, refs)
+        apps = apps.get(timeout=900)
     finally:
         pool.terminate()
         pool.join()
         os.environ[THREADS_ENV] = str(cores)
     lagrange_launches = phase_lagrange(torch, np)
-    phase_apps(np)
+    phase_apps(np, apps)
 
     main_row = rows[0]   # A_top, the largest K1 call of the main path
     kernels = [{
@@ -1484,7 +1646,10 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": launches,
         "launches_by_path": {"block glob_leve=2": launches,
+                             "block glob_leve=2 f32": slice_f32_launches,
                              f"block glob_leve={FULL_LEVE}": full_launches,
+                             f"block glob_leve={FULL_LEVE} f32":
+                                 full_f32_launches,
                              **sharding_launches, **example_launches,
                              **lagrange_launches},
         "max_abs_err": main_row["max_abs_err"],

@@ -21,7 +21,7 @@ from ..solvers.mg import (
 )
 from ..sparse.dia import Dia, PlaneDia
 from ..sparse.ell import Ell
-from ..utils.device import resolve_device, to_device
+from ..utils.device import resolve_device, to_device, tree_map
 from .multiscale import (
     CoarseCorrection,
     ComposedAccu,
@@ -70,7 +70,7 @@ def _conv(obj, index: bool = False):
     # the chains come from the converted hierarchy (problem_from_arrays)
     if name == "ComposedTranD":
         return ComposedTranD(_conv(obj.reg), _t(obj.idx, True),
-                             _t(obj.mask), obj.level, chain=())
+                             _t(obj.mask), obj.level, chain=(), A=None)
     if name == "ComposedAccu":
         return ComposedAccu(_t(obj.idx, True), _t(obj.mask), obj.level,
                             obj.n_dole_pad, obj.n_bodies, chain=())
@@ -90,11 +90,38 @@ def _conv(obj, index: bool = False):
     raise TypeError(f"problem_from_arrays: unknown node {name}")
 
 
+def _tensors(op) -> list:
+    found = []
+    tree_map(lambda t: found.append(t) or t, op)
+    return found
+
+
+def _alias_top(mg: MgHierarchy) -> MgHierarchy:
+    """``mg`` with A_top the finest level's operator where the two hold the
+    same tables, as the port's ``build_hierarchy`` makes them when the
+    dtypes agree (the JAX package's float32 problem): numpy leaves carry
+    them over as two copies."""
+    top, fine = mg.A_top, mg.levels[-1].A
+    if type(top) is not type(fine) or top.dtype != fine.dtype:
+        return mg
+    a, b = _tensors(top), _tensors(fine)
+    if len(a) == len(b) and all(
+            x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+            for x, y in zip(a, b)):
+        return mg._replace(A_top=fine)
+    return mg
+
+
 def problem_from_arrays(prob_np, device="cuda") -> AdmmProblem:
     """The port's AdmmProblem on ``device`` from the JAX package's problem
-    with numpy leaves."""
+    with numpy leaves.  A float32 problem keeps its float32 leaves, and
+    A_top aliases the finest level, in the body hierarchy and in a coarse
+    correction's own."""
     prob = _conv(prob_np)
+    prob = prob._replace(mg=_alias_top(prob.mg))
     if prob.coarse:
-        prob = prob._replace(coarse=tuple(with_chains(co, prob.mg)
-                                          for co in prob.coarse))
+        prob = prob._replace(coarse=tuple(
+            with_chains(co if co.mg is None
+                        else co._replace(mg=_alias_top(co.mg)), prob.mg)
+            for co in prob.coarse))
     return to_device(prob, resolve_device(device))

@@ -132,8 +132,8 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...], shard=None,
     mass_rtol = max(float(CG_RTOL), 4.0 * float(torch.finfo(dtype).eps))
 
     def body_solve(rhs, x0):
-        # warm start from the previous ADMM iterate; matvec in float64,
-        # V-cycle preconditioner in float32 (see solvers/mg.py)
+        # warm start from the previous ADMM iterate; matvec in the solve
+        # dtype, V-cycle preconditioner in float32 (see solvers/mg.py)
         with record_function("body pcg"):
             res = pcg(mg.A_top.mv, lambda r: _vcycle(mg, r), rhs,
                       x0=x0, rtol=inner_rtol, maxiter=inner_maxiter)
@@ -150,8 +150,8 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...], shard=None,
             for gs, tz, ti in zip(state.groups, co.tranZ, co.tranZ_idx):
                 gf = gf.index_add(0, ti.reshape(-1), tz.mv(gs.z).reshape(-1))
         if isinstance(co.tranD, ComposedTranD):
-            # F^T A u through the hierarchy (A_top + Pt chain)
-            gf = gf + co.tranD.apply(mg, u, gather)
+            # F^T A u through the hierarchy (float64 A + Pt chain)
+            gf = gf + co.tranD.apply(u, gather)
         else:
             gf = gf + co.tranD.mv(gather(u).reshape(-1))
         if co.mg is not None:
@@ -168,7 +168,7 @@ def make_admm_step(prob: AdmmProblem, modes: tuple[str, ...], shard=None,
                     maxiter=500,
                 ).x[0]
         else:
-            # inverse apply + one f64 refinement step
+            # inverse apply + one refinement step in the solve dtype
             sol = co.inv @ gf
             sol = sol + co.inv @ (gf - co.mat @ sol)
         if isinstance(co.accu, ComposedAccu):

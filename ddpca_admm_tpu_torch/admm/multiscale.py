@@ -103,7 +103,9 @@ def restriction_chain(mg: MgHierarchy, level: int) -> tuple:
     above its criterion (BLOCK glob_leve=2 with the chain forced: a floor
     near 1e-11 against the 1e-12 it needs).  Cast from the float32 tables,
     these hold the same values, so the CPU's plain versions, which
-    promote, give the same bits with either."""
+    promote, give the same bits with either.  In a float32 solve, whose
+    criterion is (100*eps32)^2 ~ 1.42e-10, A_top is float32 and the chain
+    holds the V-cycle's own tables: none is copied."""
     dt = mg.A_top.dtype
     return tuple(_in_dtype(mg.levels[l].Pt, dt)
                  for l in range(len(mg.levels) - 1, level, -1))
@@ -123,26 +125,33 @@ class ComposedTranD:
     (MCONTACT.h:1880-1906) — the largest operator of a large problem, while
     F^T is exactly the product
     of realProl transposes the hierarchy already stores as Pt operators.
-    So:  -F^T(A u) = -(Pt chain)(A_top.mv(u)), plus the materialized region
+    So:  -F^T(A u) = -(Pt chain)(A.mv(u)), plus the materialized region
     coupling part (interface-local rows only, small).
 
     ``level`` (static) is the coarse level dole; ``idx``/``mask`` map the
     restricted per-body (B, n_dole_pad) layout into the stacked coarse
-    vector (Nc_pad,); ``chain`` is ``restriction_chain(mg, level)``."""
+    vector (Nc_pad,); ``chain`` is ``restriction_chain(mg, level)``; ``A``
+    the finest operator, in float64 (the float64 solve's A_top itself).
+    A u cancels the load terms of the coarse right-hand side, so a float32
+    solve takes it in float64 and rounds once, after the cancellation: with
+    a float32 A u the solve ends 1.08e-3 of max|u| from the float64 one at
+    BLOCK glob_leve=4 whatever its tolerances, and at glob_leve=2 with the
+    chain forced 1.55e-4 against 3.1e-5 (the JAX package computes it in
+    float32)."""
 
-    def __init__(self, reg, idx, mask, level: int, chain: tuple):
+    def __init__(self, reg, idx, mask, level: int, chain: tuple, A):
         self.reg = reg        # Ell (Nc_pad, B*n_pad) region part, sign baked
         self.idx = idx        # (Nc_pad,) int64 into flattened (B*n_dole_pad)
         self.mask = mask      # (Nc_pad,) 0/1 in solve dtype
         self.level = int(level)
         self.chain = tuple(chain)
+        self.A = A
 
-    def apply(self, mg: "MgHierarchy", u: torch.Tensor,
-              gather) -> torch.Tensor:
+    def apply(self, u: torch.Tensor, gather) -> torch.Tensor:
         """``gather`` all-gathers body-batched rows over ranks (the
-        identity on one device): the A_top and Pt chain runs on the rank's
+        identity on one device): A and the Pt chain run on the rank's
         bodies, ``take`` and the region part on the gathered vectors."""
-        y = mg.A_top.mv(u)                                # (B, n_pad)
+        y = self.A.mv(u.to(self.A.dtype)).to(u.dtype)     # (B, n_pad)
         for Pt in self.chain:
             y = Pt.mv(y)
         y, u = gather(y), gather(u)
@@ -178,12 +187,13 @@ class ComposedAccu:
 
 
 def with_chains(co: CoarseCorrection, mg: MgHierarchy) -> CoarseCorrection:
-    """``co`` with the chains of its composed operators taken from ``mg``
-    (for a correction whose operators were made without them)."""
+    """``co`` with the chains of its composed operators, and the operator of
+    F^T A u, taken from ``mg`` (for a correction whose operators were made
+    without them)."""
     tranD, accu = co.tranD, co.accu
     if isinstance(tranD, ComposedTranD):
         tranD = ComposedTranD(tranD.reg, tranD.idx, tranD.mask, tranD.level,
-                              restriction_chain(mg, tranD.level))
+                              restriction_chain(mg, tranD.level), mg.A_top)
     if isinstance(accu, ComposedAccu):
         accu = ComposedAccu(accu.idx, accu.mask, accu.level,
                             accu.n_dole_pad, accu.n_bodies,
@@ -238,13 +248,15 @@ def _dd_hierarchy(
     systems: Sequence[ConstrainedSystem],
     dole: Sequence[int],
     n_macro_total: int = 0,
+    dtype=None,
 ) -> MgHierarchy | None:
     """DOUBLE_M / DOUBLE_M_1 (MCONTACT.h:1538-1670, 2303-2341): a multigrid
     hierarchy for the global coarse operator built from block-diagonal
     per-subdomain prolongations (each body's own realProl below its coarse
     level ``dole``), with an identity block appended for the macroscopic
     interface unknowns of variant A.  Returns None when any body has no
-    levels below its coarse level (dole==0: nothing to coarsen with)."""
+    levels below its coarse level (dole==0: nothing to coarsen with).
+    ``dtype``: the solve dtype, that of the hierarchy's A_top."""
     depth = min(int(d) for d in dole)
     if depth == 0:
         return None
@@ -259,7 +271,8 @@ def _dd_hierarchy(
     for P in reversed(prols):
         mats.append((P.T @ mats[-1] @ P).tocsr())
     mats.reverse()
-    return build_hierarchy([mats], [prols], assume_sym=False)
+    return build_hierarchy([mats], [prols], assume_sym=False,
+                           a_top_dtype=dtype)
 
 
 def _coarse_solver_parts(
@@ -268,6 +281,7 @@ def _coarse_solver_parts(
     dole: Sequence[int],
     coarse_solver: str,
     n_macro_total: int = 0,
+    dtype=None,
 ):
     """(inv, mat, mg) for a CoarseCorrection: dense inverse below DIRE_MAXI,
     DOUBLE_M(_1) MG hierarchy at/above it (reference dispatch,
@@ -284,7 +298,7 @@ def _coarse_solver_parts(
         coarse_solver == "auto" and Nc >= DENSE_COARSE_MAXI
     )
     if use_ddmg:
-        mg = _dd_hierarchy(G, systems, dole, n_macro_total)
+        mg = _dd_hierarchy(G, systems, dole, n_macro_total, dtype)
         if mg is not None:
             one = np.zeros((1, 1))
             return torch.from_numpy(one), torch.from_numpy(one), mg
@@ -390,11 +404,16 @@ def build_coarse_correction(
     m_pads: Sequence[int],
     coarse_solver: str = "auto",
     compose_mg: MgHierarchy | None = None,
+    dtype=None,
+    compose_a=None,
 ) -> CoarseCorrection:
     """``compose_mg``: when given (the structured/uniform-dole path), the
     F^T A block of globTran_D_1 and the accuProl are NOT materialized —
-    the loop computes them through this body hierarchy's A_top and its
-    Pt/P chains (ComposedTranD / ComposedAccu)."""
+    the loop computes them through this body hierarchy's Pt/P chains and
+    ``compose_a``, the finest operator in float64 (default: the
+    hierarchy's A_top; ComposedTranD / ComposedAccu).  ``dtype``: the
+    solve dtype, that of the DOUBLE_M_1 hierarchy's A_top (default: the
+    policy's, utils/precision.py)."""
     B = len(systems)
     compose = compose_mg is not None
     if compose:
@@ -402,7 +421,8 @@ def build_coarse_correction(
     G_sp, F, base, XF = glob_coup_1(systems, regions, dole)
     nc = [F[v].shape[1] for v in range(B)]
     Nc = int(base[-1])
-    inv, mat, mg = _coarse_solver_parts(G_sp, systems, dole, coarse_solver)
+    inv, mat, mg = _coarse_solver_parts(G_sp, systems, dole, coarse_solver,
+                                        dtype=dtype)
 
     # ---- globTran_D_1 (MCONTACT.h:1868-2055), acting on stacked reduced u
     rows_td = []
@@ -479,6 +499,7 @@ def build_coarse_correction(
             device_sparse([(-tranD).tocsr()], Nc_pad, B * n_pad),
             torch.from_numpy(idx), torch.from_numpy(mask), int(dole[0]),
             restriction_chain(compose_mg, int(dole[0])),
+            compose_mg.A_top if compose_a is None else compose_a,
         )
         accu_op = ComposedAccu(
             torch.from_numpy(idx), torch.from_numpy(mask), int(dole[0]), ndp,
@@ -584,12 +605,14 @@ def build_coarse_correction_a(
     group_region_idx: Sequence[Sequence[int]],
     m_pads: Sequence[int],
     coarse_solver: str = "auto",
+    dtype=None,
 ) -> CoarseCorrection:
     """MULTISCALE variant A — the LATIN-style macroscopic correction
     (MCONTACT.h:898-1536): the coarse space is [all bodies' level-dole DOFs;
     one macroscopic unknown block per region], where the macroscopic basis is
     the *non-mortar-side* interface trace of the coarse scalar shape
-    functions (ficoCotr, MCONTACT.h:900-965)."""
+    functions (ficoCotr, MCONTACT.h:900-965).  ``dtype`` as in
+    ``build_coarse_correction``."""
     G_sp, F, base, fico, macro_base, XF, n_macro = glob_coup_a(
         systems, regions, meshes, dole
     )
@@ -598,7 +621,8 @@ def build_coarse_correction_a(
     Nb = int(base[-1])
     Nc = int(macro_base[-1])
     inv, mat, mg = _coarse_solver_parts(
-        G_sp, systems, dole, coarse_solver, n_macro_total=Nc - Nb
+        G_sp, systems, dole, coarse_solver, n_macro_total=Nc - Nb,
+        dtype=dtype,
     )
 
     # ---- globTran (lam), globTran_pena (z), globTran_D (u)

@@ -110,6 +110,7 @@ def build_problem(
     coarse_solver: str = "auto",
     structured: bool = True,
     device="cuda",
+    dtype=None,
 ) -> tuple[AdmmProblem, AdmmMeta]:
     """Build the device problem on ``device`` (default the card; raises
     when there is none and the caller did not ask for the CPU).
@@ -118,14 +119,18 @@ def build_problem(
     (doleMcsc, MCONTACT.h:23); None disables them.  ``musc_sett`` is the
     reference's correction bitmask (MCONTACT.h:22): bit0 = MULTISCALE (A,
     LATIN macroscopic — requires ``meshes``), bit1 = MULTISCALE_1 (B,
-    interface-eliminated).  The solve dtype is float64 and the V-cycle runs
-    in float32 (utils/precision.py)."""
+    interface-eliminated).  ``dtype``: the solve dtype (default:
+    ``DDPCA_SOLVE_DTYPE``, else float64; utils/precision.py).  The V-cycle
+    runs in float32 either way; a float32 solve has every floating tensor
+    in float32, cast on the host before the upload, so the card never
+    holds the float64 problem."""
     dev = resolve_device(device)
     B = len(systems)
+    from ..utils.precision import cast_problem
     from ..utils.precision import solve_dtype as _solve_dtype
     from ..utils.timing import phase as _phase
 
-    sd = _solve_dtype()
+    sd = _solve_dtype(dtype)
     # Bodies untouched by contact AMR have fewer multigrid levels than the
     # refined ones (the reference's per-domain mgpi.maxiLeve varies freely,
     # MGPIS.h:10); the batched hierarchy needs a uniform count, so extend
@@ -155,13 +160,36 @@ def build_problem(
         or any(len(s.cons_stif) != L_max for s in systems)
     ):
         grids = None
+    # LARGE structured uniform-dole problems compute the F^T A / accuProl
+    # actions of coarse correction B through the hierarchy (ComposedTranD /
+    # ComposedAccu) instead of materializing them.  Small problems keep the
+    # materialized (solve-dtype-exact) operators: the composed chain runs
+    # in the f32 preconditioner dtype.
+    import os as _os
+
+    compose_min = int(
+        _os.environ.get("DDPCA_COMPOSE_TRAND_MIN_DOFS", "2000000")
+    )
+    n_top = round_up(max(stif[-1].shape[0] for stif in stif_lists), 128)
+    composed = (
+        dole is not None
+        and bool(musc_sett & 2)
+        and grids is not None
+        and len(set(dole)) == 1
+        and B * n_top >= compose_min
+    )
     with _phase("MGPIS::ESTABLISH (device hierarchy)"):
+        # the composed F^T A u takes A in float64 in either solve dtype
         mg = build_hierarchy(
             stif_lists, prol_lists,
             dtype=torch.float32,
-            a_top_dtype=sd,
+            a_top_dtype=torch.float64 if composed else sd,
             grids=grids,
         )
+    compose_a = mg.A_top
+    if mg.A_top.dtype != sd:
+        # a float32 solve: the Krylov operator is the finest level's own
+        mg = mg._replace(A_top=mg.levels[-1].A)
     n_pad = mg.levels[-1].A.n_rows
     cons_forc = np.zeros((B, n_pad))
     gram_mats, gram_lin, gram_const = [], np.zeros((B, n_pad)), np.zeros(B)
@@ -327,30 +355,17 @@ def build_problem(
                     build_coarse_correction_a(
                         systems, regions, meshes or [], list(dole), n_pad,
                         group_region_idx, m_pads, coarse_solver=coarse_solver,
+                        dtype=sd,
                     )
                 )
         if musc_sett & 2:
-            # LARGE structured uniform-dole problems compute the F^T A /
-            # accuProl actions through the hierarchy (ComposedTranD /
-            # ComposedAccu) instead of materializing them.  Small problems
-            # keep the materialized (solve-dtype-exact) operators: the
-            # composed chain runs in the f32 preconditioner dtype.
-            import os as _os
-
-            compose_min = int(
-                _os.environ.get("DDPCA_COMPOSE_TRAND_MIN_DOFS", "2000000")
-            )
-            compose = (
-                grids is not None
-                and len(set(dole)) == 1
-                and B * n_pad >= compose_min
-            )
             with _phase("MCONTACT::MULTISCALE_1 (coarse correction B)"):
                 parts.append(
                     build_coarse_correction(
                         systems, regions, list(dole), n_pad, group_region_idx,
                         m_pads, coarse_solver=coarse_solver,
-                        compose_mg=mg if compose else None,
+                        compose_mg=mg if composed else None, dtype=sd,
+                        compose_a=compose_a,
                     )
                 )
         coarse = tuple(parts) if parts else None
@@ -365,6 +380,13 @@ def build_problem(
         u_mask=torch.from_numpy(u_mask),
         coarse=coarse,
     )
+    if sd != torch.float64:
+        # on the host: casting after the upload would hold the float64
+        # problem on the card first (the JAX package's sparse/bell.py
+        # records a tripled peak from that order)
+        with _phase("cast to the solve dtype (host)"):
+            prob = cast_problem(prob, sd,
+                                keep=(compose_a,) if composed else ())
     prob = to_device(prob, dev)
     meta = AdmmMeta(
         systems=list(systems),

@@ -252,17 +252,21 @@ def _slice_mg(mg: MgHierarchy, lo: int, hi: int, n: int) -> MgHierarchy:
     )
 
 
-def _slice_coarse(co, lo: int, hi: int, n_pad: int, n: int):
+def _slice_coarse(co, lo: int, hi: int, n_pad: int, n: int,
+                  mg: MgHierarchy, local_mg: MgHierarchy):
     """A coarse correction, replicated, whose materialized accu keeps only
     the rows of bodies [lo, hi) of n; the composed operators keep their
-    layouts (the loop takes the rank's rows) and run their chains on the
-    rank's bodies."""
+    layouts (the loop takes the rank's rows) and run their chains and their
+    float64 operator on the rank's bodies (``local_mg``'s A_top where the
+    operator is ``mg``'s)."""
     if isinstance(co.accu, ComposedAccu):
         tranD, accu = co.tranD, co.accu
         if isinstance(tranD, ComposedTranD):
             tranD = ComposedTranD(
                 tranD.reg, tranD.idx, tranD.mask, tranD.level,
-                tuple(_slice_op(op, lo, hi, n) for op in tranD.chain))
+                tuple(_slice_op(op, lo, hi, n) for op in tranD.chain),
+                (local_mg.A_top if tranD.A is mg.A_top
+                 else _slice_op(tranD.A, lo, hi, n)))
         accu = ComposedAccu(
             accu.idx, accu.mask, accu.level, accu.n_dole_pad, accu.n_bodies,
             tuple(_slice_op(op, lo, hi, n) for op in accu.chain))
@@ -287,7 +291,8 @@ def shard_problem(prob: AdmmProblem, rank: int, world: int) -> AdmmProblem:
             parts[name] = _slice_op(sub, lo, hi, B)
         elif name == "coarse":
             parts[name] = (None if sub is None else
-                           tuple(_slice_coarse(co, lo, hi, n_pad, B)
+                           tuple(_slice_coarse(co, lo, hi, n_pad, B,
+                                               prob.mg, parts["mg"])
                                  for co in sub))
         elif name in _PROBLEM_REPLICATED_FIELDS:
             parts[name] = sub

@@ -8,7 +8,9 @@ leading body axis: one V-cycle call smooths every subdomain at once.
 
 The host half (``build_hierarchy``) picks each level's format exactly as the
 JAX package does on the CPU; the V-cycle runs in the hierarchy's dtype
-(float32) while ``A_top``, the Krylov matvec operator, is float64.
+(float32) while ``A_top``, the Krylov matvec operator, is in the solve
+dtype: a float64 copy of the finest level, or in float32 the finest
+level's operator itself.
 """
 
 from __future__ import annotations
@@ -258,7 +260,9 @@ def build_hierarchy(
     (l=0 coarsest); ``real_prol[b][l]`` maps level l -> l+1.  All subdomains
     must have the same number of levels; shapes are padded to the batch max.
     The V-cycle runs in ``dtype``; ``A_top`` holds the finest operator in
-    ``a_top_dtype`` (default: the solve dtype, float64)."""
+    ``a_top_dtype`` (default: the solve dtype, ``utils/precision.py``).
+    Where the two dtypes agree, ``A_top`` is ``levels[-1].A``, the same
+    object, and no second copy of its tables exists."""
     B = len(cons_stif)
     L = len(cons_stif[0])
     assert all(len(cs) == L for cs in cons_stif), "uniform level count required"

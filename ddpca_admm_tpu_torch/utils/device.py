@@ -19,22 +19,35 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def tree_map(fn, obj):
+def tree_map(fn, obj, keep=()):
     """Apply ``fn`` to every tensor in a tree of NamedTuples, tuples, lists
-    and operator objects (whose attributes are mapped); other leaves pass
-    through.  Operator objects are copied, never mutated."""
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(tree_map(fn, v) for v in obj))
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(tree_map(fn, v) for v in obj)
-    if obj is None or isinstance(obj, (bool, int, float, str, np.generic,
-                                       np.ndarray, torch.dtype)):
-        return obj
-    new = object.__new__(type(obj))
-    new.__dict__.update({k: tree_map(fn, v) for k, v in vars(obj).items()})
-    return new
+    and operator objects (whose attributes are mapped); other leaves, and
+    the objects in ``keep``, pass through.  Operator objects are copied,
+    never mutated.  A tensor or object reached twice
+    (``MgHierarchy.A_top`` aliasing the finest level's operator) is mapped
+    once, and both places get the one result."""
+    memo: dict[int, object] = {id(o): o for o in keep}
+
+    def go(o):
+        key = id(o)
+        if key in memo:
+            return memo[key]
+        if isinstance(o, torch.Tensor):
+            out = fn(o)
+        elif isinstance(o, tuple) and hasattr(o, "_fields"):
+            out = type(o)(*(go(v) for v in o))
+        elif isinstance(o, (tuple, list)):
+            out = type(o)(go(v) for v in o)
+        elif o is None or isinstance(o, (bool, int, float, str, np.generic,
+                                         np.ndarray, torch.dtype)):
+            return o
+        else:
+            out = object.__new__(type(o))
+            out.__dict__.update({k: go(v) for k, v in vars(o).items()})
+        memo[key] = out
+        return out
+
+    return go(obj)
 
 
 def to_device(tree, device):

@@ -219,6 +219,44 @@ def test_small_block_card_matches_cpu(monkeypatch):
     assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-6 * scale
 
 
+def test_small_block_f32_card_matches_cpu(monkeypatch):
+    """The float32 solve path (``build_problem(dtype=torch.float32)``): the
+    small BLOCK with the PlaneDia path forced, on the card (K1's float32
+    entry point carries the body PCG's matvec) against the CPU: ``it``
+    within 1 and u within 1e-4 of max|u|."""
+    _need_card()
+    import ddpca_admm_tpu_torch.solvers.mg as mgmod
+    import ddpca_admm_tpu_torch.sparse.bell as bell
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.models.block import (
+        BlockConfig,
+        build_block_model,
+    )
+
+    monkeypatch.setattr(bell, "BELL_MAX_BYTES", 0)
+    monkeypatch.setattr(mgmod, "DIA_LATENCY_BYTES", 0)
+    model = build_block_model(
+        BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1)))
+    states = {}
+    for dev in ("cpu", "cuda"):
+        prob, meta = build_problem(model.systems, model.regions,
+                                   dole=[0] * len(model.systems), device=dev,
+                                   dtype=torch.float32)
+        assert prob.mg.A_top is prob.mg.levels[-1].A
+        assert any(isinstance(op, PlaneDia) for op in prob.mg.A_top.ops)
+        before = K.LAUNCHES
+        states[dev] = contact_analysis(prob, tuple(meta.group_modes),
+                                       max_iter=1500, device=dev)
+        launched = K.LAUNCHES - before
+    assert launched > 0
+    cpu, gpu = states["cpu"], states["cuda"]
+    assert gpu.u.dtype == torch.float32
+    assert cpu.converged and gpu.converged and abs(cpu.it - gpu.it) <= 1
+    scale = float(cpu.u.abs().max())
+    assert float((gpu.u.cpu() - cpu.u).abs().max()) <= 1e-4 * scale
+
+
 def _card_and_cpu_states(build, max_iter):
     """Solve the problem ``build(device)`` gives on the CPU and on the card;
     returns the two states."""
@@ -341,7 +379,7 @@ def test_composed_coarse_operators_card_match_cpu(monkeypatch):
         co = prob.coarse[0]
         assert len(co.tranD.chain) == len(co.accu.chain) == 1
         before = K.LAUNCHES
-        out[dev] = (co.tranD.apply(prob.mg, u.to(dev), lambda t: t),
+        out[dev] = (co.tranD.apply(u.to(dev), lambda t: t),
                     co.accu.apply(sol.to(dev), slice(None)))
         launched = K.LAUNCHES - before
     assert launched > 0
