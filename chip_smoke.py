@@ -6,7 +6,8 @@
 Phases, one line each with its ``elapsed_s``:
 
   1. device  — the card's name and power limit (nvidia-smi), and the nvcc
-     build of the kernel library (``csrc/*.cu``) with its seconds;
+     builds of the kernel libraries (one per ``csrc/*.cu``, started
+     together) with their seconds;
   2. kernels — K1, the PlaneDia SpMV, against its plain PyTorch version at
      every shape the BLOCK glob_leve=2 solve gives it, plus a tail-identity
      and a zero-tail case, and at the glob_leve=4 (8.8M DOF) shapes of the
@@ -23,7 +24,10 @@ Phases, one line each with its ``elapsed_s``:
      card (K1): the same ADMM iteration count and u within 1e-6 max|u|;
      ``small_f32``: the same in float32 (``build_problem(dtype=
      torch.float32)``, the JAX package's accelerator path), ``it`` within
-     1 and u within 1e-4 max|u|;
+     1 and u within 1e-4 max|u|; ``small_bell``: the small BLOCK
+     (MULTISCALE_1 at doleMcsc=1) under ``DDPCA_SPARSE_FORMAT=bell``, the
+     JAX package's accelerator format, on the CPU and on the card (K2,
+     the Block-ELL SpMV): the same ``it``, u, z and lambda within 1e-8;
   4. slice   — the BLOCK menu-1 problem at glob_leve=2 (180,684 DOF, 30
      bodies, MULTISCALE_1 at doleMcsc=1) built by the port's own host code,
      K1 held against its plain version on every PlaneDia operator of the
@@ -36,7 +40,20 @@ Phases, one line each with its ``elapsed_s``:
      float64 A for F^T A u), convergence, u within 3e-4 max|u| of the
      float64 solve, the patch test within 3e-4, K1 launched; ``it``,
      ``inner_iters``, seconds, K1 launches, ``problem_bytes`` (floating
-     and integer) and peak card memory on the line;
+     and integer) and peak card memory on the line; ``slice_bell`` and
+     ``slice_bell_f32``: the same host model's problem under
+     ``DDPCA_SPARSE_FORMAT=bell`` in float64 and in float32 (the JAX
+     package's own accelerator configuration), the tiles built on the
+     card (the rest on the host by phase), each freed before the next
+     phase: as many Block-ELL operators as the JAX package builds (23 and
+     22), K2 held against its plain version on every one of them and
+     timed (warm, cold, bound, plain version, ``torch.sparse.mm`` on the
+     CSR of the same operator) on the largest and smallest stacks, the
+     coarse hierarchy's operator and the shapes of ``K2_NAMED``, and its
+     refusal of another dtype, then the solve through K1 and K2: in
+     float64 the ELL
+     slice's ``it`` and u within 1e-8 of max|u| of its solve, in float32
+     convergence and u within 3e-4, the patch test, K1 and K2 launched;
   5. full    — BLOCK menu-1 at the reference's own size, glob_leve=4
      (8,809,452 DOF): the host build in the port's process pool (its
      phases, worker count and peak host memory on the line), K1 held
@@ -81,16 +98,18 @@ Phases, one line each with its ``elapsed_s``:
      the port's command line, host code, at the small grid, computed in
      the examples' CPU pool beside the card phases.
 
-Then the ``kernels`` JSON line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed check ends the run
-with a non-zero exit.  The script imports nothing of JAX.
+Then the ``kernels`` JSON line (K1 and K2), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+check ends the run with a non-zero exit.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -172,18 +191,25 @@ def warm_ms(torch, fn, inner: int = 20, reps: int = 5) -> float:
     return graph_ms(torch, [fn] * inner, reps)
 
 
-def cold_ms(torch, mv, pd, x, reps: int = 3) -> float:
-    """One mv(pd, x) call with its table and x out of L2: the graph cycles
-    through k copies of (vals, x) that together pass COLD_BYTES, so the
-    calls since a copy's last turn have evicted it (k >= 2, the plan is
-    shared)."""
-    per = (pd.vals.numel() * pd.vals.element_size()
-           + 2 * x.numel() * x.element_size())
+def cold_ms(torch, mv, pd, x, reps: int = 3, tables=None) -> float:
+    """One mv(pd, x) call with its tables and x out of L2: the graph cycles
+    through k copies of (tables, x) that together pass COLD_BYTES, so the
+    calls since a copy's last turn have evicted it (k >= 2).  ``tables``
+    names the operator's large tensors (default: a PlaneDia's ``vals``, its
+    plan shared); the copies are shallow copies of the operator with those
+    tensors cloned."""
+    tables = tables or ("vals",)
+    per = sum(getattr(pd, t).numel() * getattr(pd, t).element_size()
+              for t in tables) + 2 * x.numel() * x.element_size()
     k = min(COLD_COPIES_MAX, max(2, -(-COLD_BYTES // per)))
     copies = []
     for _ in range(k):
-        c = copy.copy(pd)
-        c.vals = pd.vals.clone()
+        fresh = {t: getattr(pd, t).clone() for t in tables}
+        if hasattr(pd, "_replace"):
+            c = pd._replace(**fresh)
+        else:
+            c = copy.copy(pd)
+            vars(c).update(fresh)
         copies.append((c, x.clone()))
     calls = [lambda c=c, xc=xc: mv(c, xc) for c, xc in copies]
     ms = graph_ms(torch, calls, reps=max(reps, -(-20 // k)))
@@ -345,17 +371,24 @@ def k1_bound(pd, x):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def run_k1_case(torch, K, pd, x, label):
-    y = K.plane_dia_mv(pd, x)
-    y_plain = K.plane_dia_mv_plain(pd, x)
+def run_case(torch, mv, plain, op, x, label):
+    """A kernel's wrapper ``mv`` against its plain version on (op, x):
+    finite, and within 1e-12 (float64) or 1e-5 (float32) of max|y|."""
+    y = mv(op, x)
+    y_plain = plain(op, x)
     torch.cuda.synchronize()
     scale = float(y_plain.abs().max())
     err = float((y - y_plain).abs().max())
-    rel = 1e-12 if pd.dtype == torch.float64 else 1e-5
-    check(bool(torch.isfinite(y).all()), f"K1 {label}: non-finite output")
+    rel = 1e-12 if op.dtype == torch.float64 else 1e-5
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
     check(err <= rel * scale,
-          f"K1 {label}: max|y - y_plain| = {err} > {rel} * {scale}")
+          f"{label}: max|y - y_plain| = {err} > {rel} * {scale}")
     return err, scale, rel
+
+
+def run_k1_case(torch, K, pd, x, label):
+    return run_case(torch, K.plane_dia_mv, K.plane_dia_mv_plain, pd, x,
+                    f"K1 {label}")
 
 
 def time_k1(torch, K, pd, x, label) -> dict:
@@ -375,36 +408,38 @@ def time_k1(torch, K, pd, x, label) -> dict:
                 bound_share_cold=bound_ms / ms_cold, bytes=nbytes, flops=ops)
 
 
-def library_case(torch, K, pd, x, label, scale, rel):
-    """torch.sparse.mm on the CSR of the same matrix, checked and timed
-    warm as K1 is; None where the CSR cannot be built (int32 nonzeros)."""
-    A = csr_of(torch, pd)
+def library_case(torch, A, x, y_plain, label, rel):
+    """torch.sparse.mm on ``A``, the CSR of the same matrix, checked
+    against the plain version's ``y_plain`` and timed warm as the kernel
+    is; None where the CSR cannot be built (int32 nonzeros)."""
     if A is None:
         return None, "CSR nonzeros pass int32"
     xcol = x.reshape(-1, 1)
-    y_lib = torch.sparse.mm(A, xcol).reshape(x.shape)
-    lib_err = float((y_lib - K.plane_dia_mv_plain(pd, x)).abs().max())
+    y_lib = torch.sparse.mm(A, xcol).reshape(y_plain.shape)
+    scale = float(y_plain.abs().max())
+    lib_err = float((y_lib - y_plain).abs().max())
     check(lib_err <= rel * scale,
-          f"K1 {label}: torch.sparse.mm disagrees ({lib_err})")
-    del y_lib
+          f"{label}: torch.sparse.mm disagrees ({lib_err})")
+    del y_lib, y_plain
     ms = warm_ms(torch, lambda: torch.sparse.mm(A, xcol))
     del A
     torch.cuda.empty_cache()
     return ms, None
 
 
-def refuse_mixed_dtype(torch, K, pd, x, label) -> None:
-    """K1's wrapper raises, launching nothing, on an x whose dtype is not
-    the table's: the kernel computes in the table's dtype, so the main
-    path can only give it that dtype, the one K1 is held at here."""
-    other = torch.float32 if pd.dtype == torch.float64 else torch.float64
+def refuse_mixed_dtype(torch, K, mv, op, x, label) -> None:
+    """A kernel's wrapper ``mv`` raises, launching nothing (``K.LAUNCHES``
+    unchanged), on an x whose dtype is not the operator's: the kernel
+    computes in the operator's dtype, so the main path can only give it
+    that dtype, the one the kernel is held at here."""
+    other = torch.float32 if op.dtype == torch.float64 else torch.float64
     before = K.LAUNCHES
     try:
-        K.plane_dia_mv(pd, x.to(other))
+        mv(op, x.to(other))
     except TypeError:
-        check(K.LAUNCHES == before, f"K1 {label}: launched on a mixed call")
+        check(K.LAUNCHES == before, f"{label}: launched on a mixed call")
         return
-    fail(f"K1 {label}: a {other} x through a {pd.dtype} table did not "
+    fail(f"{label}: a {other} x through a {op.dtype} operator did not "
          "raise")
 
 
@@ -424,11 +459,12 @@ def phase_kernels(torch, args):
                                   reps=2 if big else 5)
         torch.cuda.empty_cache()
         row["library_ms"], why = library_case(
-            torch, K, pd, x, label, row["max_abs_y"], row["tol_rel"])
+            torch, csr_of(torch, pd), x, K.plane_dia_mv_plain(pd, x),
+            f"K1 {label}", row["tol_rel"])
         if why:
             row["library_not_measured"] = why
         rows.append(row)
-        refuse_mixed_dtype(torch, K, pd, x, label)
+        refuse_mixed_dtype(torch, K, K.plane_dia_mv, pd, x, f"K1 {label}")
         del pd, x
         torch.cuda.empty_cache()
     emit("kernels", cases=rows)
@@ -690,6 +726,326 @@ def phase_f32(torch, np, label, model, cfg, u64, max_iter):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------ Block-ELL and K2
+
+K2_SOURCE = "ddpca_admm_tpu_torch/csrc/block_ell.cu"
+# K2 replaces no Pallas kernel: the JAX package's BlockEll.mv is an XLA
+# block gather and einsum
+K2_REPLACES = "ddpca_admm_tpu/sparse/bell.py:84-115"
+# Block-ELL operators the JAX package builds for BLOCK glob_leve=2 under
+# DDPCA_SPARSE_FORMAT=bell, by solve dtype: every one of its device_sparse
+# calls takes Block-ELL (counted on the CPU through the JAX package's own
+# device_sparse); in float32 the coarse hierarchy's A_top is its finest
+# level's operator, one call fewer
+BELL_OPS = {"float64": 23, "float32": 22}
+# the card against the CPU, and Block-ELL against ELL, in float64
+BELL_TOL = 1e-8
+
+
+@contextlib.contextmanager
+def sparse_format(fmt: str):
+    """DDPCA_SPARSE_FORMAT set to ``fmt`` for the builds inside."""
+    saved = os.environ.get("DDPCA_SPARSE_FORMAT")
+    os.environ["DDPCA_SPARSE_FORMAT"] = fmt
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("DDPCA_SPARSE_FORMAT", None)
+        else:
+            os.environ["DDPCA_SPARSE_FORMAT"] = saved
+
+
+def block_ells(prob) -> list:
+    """Every distinct BlockEll operator of a problem, labelled by its
+    place in the problem tree."""
+    found, seen = [], set()
+
+    def walk(obj, label):
+        name = type(obj).__name__
+        if name == "BlockEll":
+            if id(obj) not in seen:
+                seen.add(id(obj))
+                found.append((label, obj))
+        elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            for f in obj._fields:
+                walk(getattr(obj, f), f"{label}.{f}")
+        elif isinstance(obj, (tuple, list)):
+            for i, v in enumerate(obj):
+                walk(v, f"{label}[{i}]")
+        elif type(obj).__module__.startswith("ddpca_admm_tpu_torch"):
+            for k, v in vars(obj).items():
+                walk(v, f"{label}.{k}")
+
+    walk(prob, "prob")
+    return found
+
+
+def k2_bound(be, x):
+    """Least time of one Block-ELL SpMV on the card: the tiles, cblk, x
+    and y moved once over the memory rate, against 2 flops per tile entry
+    over the dtype's peak."""
+    item = be.tiles.element_size()
+    F = x.numel() // be.n_cols
+    nbytes = (be.tiles.numel() * item + be.cblk.numel() * 4
+              + x.numel() * item + F * be.n_rows * item)
+    ops = 2.0 * math.prod(be.tiles.shape[-4:]) * F
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[str(be.dtype).replace("torch.", "")]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def bell_csr(torch, be):
+    """The block-diagonal CSR matrix of a (batched) BlockEll, built on the
+    card from its nonzero tile entries (the yardstick for
+    torch.sparse.mm), or None when its nonzeros pass int32."""
+    n_rb, S, RB, CB = be.tiles.shape[-4:]
+    tiles = be.tiles.reshape(-1, n_rb, S, RB, CB)
+    cblk = be.cblk.reshape(-1, n_rb, S)
+    F = tiles.shape[0]
+    f, r, s, i, c = (tiles != 0).nonzero().unbind(1)
+    if f.numel() >= 2 ** 31:
+        return None
+    rows = f * be.n_rows + r * RB + i
+    cols = f * be.n_cols + cblk[f, r, s].long() * CB + c
+    vals = tiles[f, r, s, i, c]
+    del f, r, s, i, c
+    order = torch.argsort(rows * (F * be.n_cols) + cols)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    crow = torch.zeros(F * be.n_rows + 1, dtype=torch.int64,
+                       device=tiles.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=F * be.n_rows), 0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), cols.to(torch.int32), vals,
+        (F * be.n_rows, F * be.n_cols), check_invariants=False)
+
+
+def run_k2_case(torch, K2, be, x, label):
+    return run_case(torch, K2.block_ell_mv, K2.block_ell_mv_plain, be, x,
+                    f"K2 {label}")
+
+
+def time_k2(torch, K2, be, x, label) -> dict:
+    """K2 against its plain version, its warm and cold times beside its
+    bound, the plain version's time and torch.sparse.mm's on the CSR of
+    the same operator (both warm); and K2's refusal of another dtype."""
+    err, scale, rel = run_k2_case(torch, K2, be, x, label)
+    ms_warm = warm_ms(torch, lambda: K2.block_ell_mv(be, x))
+    ms_cold = cold_ms(torch, K2.block_ell_mv, be, x, tables=("tiles",))
+    bound_ms, bound_by, nbytes, ops = k2_bound(be, x)
+    big = nbytes > BIG_TABLE_BYTES
+    plain_ms = warm_ms(torch, lambda: K2.block_ell_mv_plain(be, x),
+                       inner=4 if big else 20, reps=2 if big else 5)
+    torch.cuda.empty_cache()
+    A = bell_csr(torch, be)
+    nnz = None if A is None else A.values().numel()
+    library_ms, why = library_case(torch, A, x, K2.block_ell_mv_plain(be, x),
+                                   f"K2 {label}", rel)
+    refuse_mixed_dtype(torch, K2, K2.block_ell_mv, be, x, f"K2 {label}")
+    row = dict(ms=ms_warm, ms_warm=ms_warm, ms_cold=ms_cold,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share_cold=bound_ms / ms_cold, bytes=nbytes, flops=ops,
+               plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+               max_abs_y=scale, tol_rel=rel, nnz=nnz,
+               fill=None if nnz is None else nnz / be.tiles.numel())
+    if why:
+        row["library_not_measured"] = why
+    return row
+
+
+# (stack, rows, cols) of operators K2 is also timed on: the region stack
+# of the interface traces, the coarse hierarchy's operator and the guard
+# slabs' row-compacted stack at glob_leve=2
+K2_NAMED = ((120, 6912, 6656), (1, 30848, 30848), (4, 632, 640))
+
+
+def k2_timed(ops) -> dict:
+    """The operators whose K2 times are taken, by role: the largest and the
+    smallest by tile bytes, the coarse hierarchy's operator (the largest
+    single square one, in the wider dtype where two share the shape), and
+    the first of each K2_NAMED shape."""
+    size = {label: be.tiles.numel() * be.tiles.element_size()
+            for label, be in ops}
+    single = {label: (be.n_rows, be.tiles.element_size())
+              for label, be in ops
+              if be.tiles.ndim == 4 and be.n_rows == be.n_cols}
+    picks = {"largest": max(size, key=size.get),
+             "smallest": min(size, key=size.get)}
+    if single:
+        picks["coarse"] = max(single, key=single.get)
+    for label, be in ops:
+        key = (math.prod(be.tiles.shape[:-4]), be.n_rows, be.n_cols)
+        role = "x".join(map(str, key))
+        if key in K2_NAMED and role not in picks \
+                and label not in picks.values():
+            picks[role] = label
+    return {label: role for role, label in picks.items()}
+
+
+def phase_small_bell(torch, np) -> int:
+    """The small BLOCK (divi 2, glob_leve 1, MULTISCALE_1 at doleMcsc=1)
+    under DDPCA_SPARSE_FORMAT=bell, on the CPU (plain versions) and on
+    the card (K2): the same ``it``, u, z and lambda within BELL_TOL of
+    their largest entries, K2 launched."""
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.models.block import BlockConfig, build_block_model
+    from ddpca_admm_tpu_torch.sparse import block_ell_kernel as K2
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+
+    model = build_block_model(
+        BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with sparse_format("bell"):
+            prob, meta = build_problem(model.systems, model.regions,
+                                       dole=[1] * len(model.systems),
+                                       musc_sett=2, device=dev)
+        n_ops = len(block_ells(prob))
+        K.LAUNCHES = K2.LAUNCHES = 0
+        st = contact_analysis(prob, tuple(meta.group_modes), max_iter=800,
+                              device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (st, K2.LAUNCHES, K.LAUNCHES)
+    (s_cpu, _, _), (s_gpu, launches, k1) = out["cpu"], out["cuda"]
+    errs = {}
+    pairs = [("u", s_cpu.u, s_gpu.u)]
+    for g, (a, b) in enumerate(zip(s_cpu.groups, s_gpu.groups)):
+        pairs += [(f"z[{g}]", a.z, b.z), (f"lam[{g}]", a.lam, b.lam)]
+    for name, a, b in pairs:
+        scale = float(a.abs().max())
+        errs[name] = float((b.cpu() - a).abs().max()) / max(scale, 1e-300)
+    emit("small_bell", block_ell_operators=n_ops, it_cpu=s_cpu.it,
+         it_cuda=s_gpu.it, inner_iters_cpu=s_cpu.inner_iters,
+         inner_iters_cuda=s_gpu.inner_iters, max_rel_err=errs,
+         k2_launches=launches, k1_launches=k1)
+    check(s_cpu.converged and s_gpu.converged, "small_bell: no convergence")
+    check(s_cpu.it == s_gpu.it,
+          f"small_bell: it {s_gpu.it} on the card, {s_cpu.it} on the CPU")
+    for name, err in errs.items():
+        check(err <= BELL_TOL, f"small_bell: {name} {err} of its largest "
+              f"entry from the CPU")
+    check(n_ops > 0, "small_bell: the problem holds no Block-ELL operator")
+    check(launches > 0, "small_bell: K2 was not launched")
+    return launches
+
+
+def phase_slice_bell(torch, np, args, sl, label, dtype) -> dict:
+    """BLOCK glob_leve=2 under DDPCA_SPARSE_FORMAT=bell in ``dtype``, built
+    from the slice phase's host model (no second host build), its tiles
+    on the card: K2 held against its plain version on every
+    Block-ELL operator and timed on three of them, then the solve through
+    K1 and K2, against the ELL slice's float64 solve.  Freed at the end,
+    on the host and the card."""
+    import gc
+
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.sparse import block_ell_kernel as K2
+    from ddpca_admm_tpu_torch.sparse import plane_dia_kernel as K
+    from ddpca_admm_tpu_torch.utils import timing
+
+    model, cfg, ref = sl["model"], sl["cfg"], sl["state"]
+    before = torch.cuda.memory_allocated()
+    timing.reset()
+    t = time.perf_counter()
+    # the tiles are built on the card inside (sparse/bell.py::tiles_on),
+    # the rest on the host and uploaded at the end
+    with sparse_format("bell"):
+        prob, meta = build_problem(
+            model.systems, model.regions,
+            dole=[1] * len(model.systems),   # doleMcsc=1 (BLOCK.cpp:69-71)
+            musc_sett=2,                     # MULTISCALE_1 (BLOCK.h:38)
+            device="cuda", dtype=dtype,
+        )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    phases = [[tag, dt] for tag, dt in timing.reset()]
+    dtypes = sorted(str(d) for d in float_dtypes(torch, prob))
+    nbytes = problem_bytes(torch, prob)
+    resident = torch.cuda.memory_allocated()
+    ops = block_ells(prob)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + len(K1_CASES) + (2 if dtype ==
+                                                 torch.float64 else 3))
+    timed = k2_timed(ops)
+    rows = []
+    for op_label, be in ops:
+        x = torch.randn(tuple(be.tiles.shape[:-4]) + (be.n_cols,),
+                        generator=gen, device="cuda", dtype=be.dtype)
+        row = dict(op=op_label, dtype=str(be.dtype).replace("torch.", ""),
+                   tiles=list(be.tiles.shape), n_cols=be.n_cols)
+        if op_label in timed:
+            row.update(case=timed[op_label],
+                       **time_k2(torch, K2, be, x, op_label))
+        else:
+            err, scale, rel = run_k2_case(torch, K2, be, x, op_label)
+            row.update(max_abs_err=err, max_abs_y=scale, tol_rel=rel)
+        rows.append(row)
+        del x
+    torch.cuda.empty_cache()
+
+    modes = tuple(meta.group_modes)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = K2.LAUNCHES = 0
+    t = time.perf_counter()
+    st = contact_analysis(prob, modes, max_iter=60, device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    k1, k2 = K.LAUNCHES, K2.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+
+    u = st.u.cpu().double().numpy()
+    err, scale = patch_error(np, cfg, model, meta, u, label)
+    u_scale = float(np.abs(sl["u"]).max())
+    du = float(np.abs(u - sl["u"]).max())
+    n_jax = BELL_OPS[str(dtype).replace("torch.", "")]
+    emit(label, glob_leve=cfg.glob_leve, dtypes=dtypes,
+         block_ell_operators=len(ops), block_ell_operators_jax=n_jax,
+         setup_s=setup_s, setup_phases=phases, it=st.it,
+         converged=st.converged, inner_iters=st.inner_iters,
+         solve_s=solve_s, s_per_iteration=solve_s / max(st.it, 1),
+         k1_launches=k1, k2_launches=k2, max_abs_du_vs_ell_f64=du,
+         max_abs_u_ell_f64=u_scale, patch_err_rel=err / scale,
+         problem_bytes=nbytes, resident_before_bytes=before,
+         resident_bytes=resident, max_memory_allocated=peak,
+         block_ell_cases=rows,
+         ell_slice=dict(it=ref.it, inner_iters=ref.inner_iters,
+                        solve_s=sl["solve_s"], k1_launches=sl["launches"],
+                        max_memory_allocated=sl["peak"],
+                        problem_bytes=problem_bytes(torch, sl["prob"])))
+    check(len(ops) == n_jax, f"{label}: {len(ops)} Block-ELL operators, "
+          f"the JAX package builds {n_jax}")
+    check(st.converged, f"{label}: no convergence in {st.it} iterations")
+    check(k1 > 0, f"{label}: K1 was not launched on the path")
+    check(k2 > 0, f"{label}: K2 was not launched on the path")
+    if dtype == torch.float64:
+        check(st.it == ref.it, f"{label}: it {st.it}, the ELL slice's "
+              f"{ref.it}")
+        check(du <= BELL_TOL * u_scale, f"{label}: u {du / u_scale} of "
+              "max|u| from the ELL slice")
+        check(err <= 1e-4 * scale,
+              f"{label}: patch test error {err / scale}")
+    else:
+        check(dtypes == ["torch.float32"],
+              f"{label}: floating tensors in {dtypes}, not float32 alone")
+        check(du <= F32_TOL * u_scale, f"{label}: u {du / u_scale} of "
+              "max|u| from the float64 ELL slice")
+        check(err <= F32_TOL * scale,
+              f"{label}: patch test error {err / scale}")
+    main = next((r for r in rows if r.get("case") == "largest"), rows[0])
+    del prob, meta, st, ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k2=k2, rows=[r for r in rows if "case" in r],
+                main=main)
 
 
 # the reference's own BLOCK size (examples/BLOCK.cpp compiles glob_leve=4):
@@ -1604,10 +1960,16 @@ def main() -> int:
 
     rows = phase_kernels(torch, args)
     phase_small(torch, np)
+    small_bell_launches = phase_small_bell(torch, np)
     sl = phase_slice(torch, np, args)
     launches = sl["launches"]
     slice_f32_launches = phase_f32(torch, np, "slice_f32", sl["model"],
                                    sl["cfg"], sl["u"], 60)
+    # the JAX package's accelerator format, Block-ELL, in float64 and in
+    # float32 (its own accelerator configuration), each freed after it
+    bell = phase_slice_bell(torch, np, args, sl, "slice_bell", torch.float64)
+    bell32 = phase_slice_bell(torch, np, args, sl, "slice_bell_f32",
+                              torch.float32)
     # the host build of the full phase takes every core and most of the
     # host memory: the examples' CPU references start after it
     full_launches, full_f32_launches = phase_full(torch, np, args)
@@ -1650,6 +2012,8 @@ def main() -> int:
                              f"block glob_leve={FULL_LEVE}": full_launches,
                              f"block glob_leve={FULL_LEVE} f32":
                                  full_f32_launches,
+                             "block glob_leve=2 bell": bell["k1"],
+                             "block glob_leve=2 bell f32": bell32["k1"],
                              **sharding_launches, **example_launches,
                              **lagrange_launches},
         "max_abs_err": main_row["max_abs_err"],
@@ -1661,6 +2025,26 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "at": main_row["case"],
         "shapes": rows,
+    }, {
+        "name": "block_ell_mv",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "replaces_kind": "XLA op (BlockEll.mv: gather and einsum), no "
+                         "Pallas kernel",
+        "launches": bell["k2"],
+        "launches_by_path": {"block glob_leve=2 bell": bell["k2"],
+                             "block glob_leve=2 bell f32": bell32["k2"],
+                             "small block bell": small_bell_launches},
+        "max_abs_err": bell["main"]["max_abs_err"],
+        "ms": bell["main"]["ms"],
+        "ms_cold": bell["main"]["ms_cold"],
+        "plain_ms": bell["main"]["plain_ms"],
+        "bound_ms": bell["main"]["bound_ms"],
+        "bound_by": bell["main"]["bound_by"],
+        "library_ms": bell["main"]["library_ms"],
+        "at": bell["main"]["op"],
+        "shapes": bell["rows"] + bell32["rows"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

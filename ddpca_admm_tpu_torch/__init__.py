@@ -5,7 +5,8 @@ decomposition with batched multigrid-preconditioned Krylov subdomain solves,
 written for one NVIDIA H100.  The host setup (meshing, contact search,
 assembly) is NumPy/SciPy, copied from the JAX package so that this package
 never imports it or JAX.  The solve is plain PyTorch on tensors, except the
-PlaneDia SpMV, which is a hand-written CUDA kernel (``csrc/plane_dia.cu``).
+PlaneDia SpMV and the Block-ELL SpMV, which are hand-written CUDA kernels
+(``csrc/plane_dia.cu``, ``csrc/block_ell.cu``).
 
 Sub-packages carry the JAX package's names, so each module's counterpart is
 found at the same path.

@@ -19,6 +19,7 @@ from ..solvers.mg import (
     StructuredProl,
     StructuredRest,
 )
+from ..sparse.bell import BlockEll
 from ..sparse.dia import Dia, PlaneDia
 from ..sparse.ell import Ell
 from ..utils.device import resolve_device, to_device, tree_map
@@ -52,6 +53,10 @@ def _conv(obj, index: bool = False):
     if name == "Ell":
         return Ell(vals=_t(obj.vals), cols=_t(obj.cols, True),
                    n_cols=int(obj.n_cols))
+    if name == "BlockEll":
+        return BlockEll(tiles=_t(obj.tiles),
+                        cblk=_t(np.asarray(obj.cblk).astype(np.int32)),
+                        n_cols=int(obj.n_cols))
     if name == "Dia":
         return Dia(_t(obj.vals), obj.offsets, obj.n_rows,
                    tail_identity=obj.tail_identity)
@@ -74,10 +79,6 @@ def _conv(obj, index: bool = False):
     if name == "ComposedAccu":
         return ComposedAccu(_t(obj.idx, True), _t(obj.mask), obj.level,
                             obj.n_dole_pad, obj.n_bodies, chain=())
-    if name == "BlockEll":
-        raise TypeError("problem_from_arrays: BlockEll operators are the "
-                        "JAX package's TPU layout; build the JAX problem on "
-                        "the CPU, where it uses ELL")
     for cls in (MgLevel, MgHierarchy, CoarseCorrection, RegionGroup,
                 AdmmProblem):
         if name == cls.__name__:

@@ -45,7 +45,6 @@ import torch
 from ..fem.constraints import ConstrainedSystem
 from ..solvers.mg import MgHierarchy, build_hierarchy
 from ..sparse.bell import device_sparse, round_up
-from ..sparse.ell import Ell
 from ..utils.constants import DENSE_COARSE_MAXI, DIRE_MAXI
 from ..utils.device import tree_map
 from ..utils.pool import thread_imap
@@ -72,17 +71,17 @@ class CoarseCorrection(NamedTuple):
     inv: torch.Tensor        # (Nc, Nc) inverse of globCoup ((1,1) when mg set)
     mat: torch.Tensor        # (Nc, Nc) globCoup itself (refinement)
     forc0: torch.Tensor      # (Nc,) constant part of the coarse rhs
-    tranD: Ell               # (Nc, B*n_pad): maps stacked u (sign baked in)
-    accu: Ell                # (B*n_pad, Nc): coarse solution -> stacked du
+    tranD: object            # (Nc, B*n_pad): maps stacked u (sign baked in)
+    accu: object             # (B*n_pad, Nc): coarse solution -> stacked du
     # tranL/tranZ are stored ROW-COMPACTED: each (region, side) operator only
     # touches a handful of coarse rows (its macro block in variant A, its two
     # body blocks in variant B), so the stack is (R, 2, r_pad, k) with a
     # companion (R, 2, r_pad) scatter-index into the Nc vector — a full
     # (R, 2, Nc, k) stack is ~Nc/r_pad x larger and was the setup/memory
     # bottleneck of the 52-domain DEHW assembly.
-    tranL: tuple[Ell, ...]   # per region group: (R,2,r_pad,k) maps lam
+    tranL: tuple             # per region group: (R,2,r_pad,...) maps lam
     tranL_idx: tuple[torch.Tensor, ...]  # per group: (R,2,r_pad) coarse rows
-    tranZ: tuple[Ell, ...] | None   # per group: maps z (None for variant B)
+    tranZ: tuple | None      # per group: maps z (None for variant B)
     tranZ_idx: tuple[torch.Tensor, ...] | None
     mg: MgHierarchy | None = None   # DOUBLE_M(_1) DD hierarchy, or None
 
@@ -140,7 +139,7 @@ class ComposedTranD:
     float32)."""
 
     def __init__(self, reg, idx, mask, level: int, chain: tuple, A):
-        self.reg = reg        # Ell (Nc_pad, B*n_pad) region part, sign baked
+        self.reg = reg        # (Nc_pad, B*n_pad) region part, sign baked
         self.idx = idx        # (Nc_pad,) int64 into flattened (B*n_dole_pad)
         self.mask = mask      # (Nc_pad,) 0/1 in solve dtype
         self.level = int(level)
@@ -221,11 +220,12 @@ class _SparseAccum:
         ).tocsr()
 
 
-def _compact_stack(mats, m_pad: int, batch_shape):
+def _compact_stack(mats, m_pad: int, batch_shape, dtype=None):
     """Row-compact a list of tall sparse matrices that are nonzero on few
-    rows each: returns (Ell (batch..., r_pad, k), idx (batch..., r_pad)) so
-    that ``full[idx] += ell.mv(x)`` reproduces ``sum(m @ x)``.  Padded rows
-    carry no stored entries (mv gives exact 0) and scatter to row 0."""
+    rows each: returns (op (batch..., r_pad, ...), idx (batch..., r_pad)),
+    op in ``device_sparse``'s format and ``dtype``, so that
+    ``full[idx] += op.mv(x)`` reproduces ``sum(m @ x)``.  Padded rows carry
+    no stored entries (mv gives exact 0) and scatter to row 0."""
     rowsets = [np.unique(m.tocoo().row) for m in mats]
     r_max = max((rs.size for rs in rowsets), default=1)
     r_pad = int(round_up(max(r_max, 1), 8))
@@ -236,7 +236,8 @@ def _compact_stack(mats, m_pad: int, batch_shape):
         idx = np.zeros(r_pad, dtype=np.int64)
         idx[: rs.size] = rs
         idxs.append(idx)
-    ell = device_sparse(comp, r_pad, m_pad, batch_shape=batch_shape)
+    ell = device_sparse(comp, r_pad, m_pad, dtype=dtype,
+                        batch_shape=batch_shape)
     idx_arr = torch.from_numpy(
         np.stack(idxs).reshape(tuple(batch_shape) + (r_pad,))
     )
@@ -483,7 +484,7 @@ def build_coarse_correction(
         mats = list(thread_imap(
             tran_l, [(regions[ri], s) for ri in idx for s in (0, 1)]))
         R = len(idx)
-        ell, ridx = _compact_stack(mats, m_pads[g_i], (R, 2))
+        ell, ridx = _compact_stack(mats, m_pads[g_i], (R, 2), dtype)
         tranL_groups.append(ell)
         tranL_idx_groups.append(ridx)
 
@@ -496,7 +497,7 @@ def build_coarse_correction(
             idx[base[v]: base[v + 1]] = v * ndp + np.arange(nc[v])
             mask[base[v]: base[v + 1]] = 1.0
         tranD_op = ComposedTranD(
-            device_sparse([(-tranD).tocsr()], Nc_pad, B * n_pad),
+            device_sparse([(-tranD).tocsr()], Nc_pad, B * n_pad, dtype),
             torch.from_numpy(idx), torch.from_numpy(mask), int(dole[0]),
             restriction_chain(compose_mg, int(dole[0])),
             compose_mg.A_top if compose_a is None else compose_a,
@@ -507,7 +508,7 @@ def build_coarse_correction(
         )
     else:
         tranD_op = device_sparse(
-            [(-tranD).tocsr()], Nc_pad, B * n_pad  # sign baked in
+            [(-tranD).tocsr()], Nc_pad, B * n_pad, dtype  # sign baked in
         )
         # ---- accuProl: stacked du = accu @ sol
         accu_blocks = []
@@ -516,7 +517,7 @@ def build_coarse_correction(
             Fv.resize((n_pad, nc[v]))
             accu_blocks.append(Fv)
         accu = sp.block_diag(accu_blocks, format="csr")  # (B*n_pad, Nc)
-        accu_op = device_sparse([accu], B * n_pad, Nc_pad)
+        accu_op = device_sparse([accu], B * n_pad, Nc_pad, dtype)
 
     return CoarseCorrection(
         inv=inv,
@@ -645,8 +646,8 @@ def build_coarse_correction_a(
                 matsL.append(_macro_rows(ri, fico[ri].T @ tl))
                 matsZ.append(_macro_rows(ri, -(fico[ri].T @ tz)))  # minus z
         R = len(idx)
-        ellL, idxL = _compact_stack(matsL, m_pads[g_i], (R, 2))
-        ellZ, idxZ = _compact_stack(matsZ, m_pads[g_i], (R, 2))
+        ellL, idxL = _compact_stack(matsL, m_pads[g_i], (R, 2), dtype)
+        ellZ, idxZ = _compact_stack(matsZ, m_pads[g_i], (R, 2), dtype)
         tranL_groups.append(ellL)
         tranL_idx_groups.append(idxL)
         tranZ_groups.append(ellZ)
@@ -680,8 +681,8 @@ def build_coarse_correction_a(
         inv=inv,
         mat=mat,
         forc0=torch.zeros(Nc_pad, dtype=torch.float64),
-        tranD=device_sparse([tranD], Nc_pad, B * n_pad),
-        accu=device_sparse([accu], B * n_pad, Nc_pad),
+        tranD=device_sparse([tranD], Nc_pad, B * n_pad, dtype),
+        accu=device_sparse([accu], B * n_pad, Nc_pad, dtype),
         tranL=tuple(tranL_groups),
         tranL_idx=tuple(tranL_idx_groups),
         tranZ=tuple(tranZ_groups),

@@ -28,7 +28,13 @@ import torch
 
 from ..fem.constraints import ConstrainedSystem
 from ..solvers.mg import MgHierarchy, build_hierarchy
-from ..sparse.bell import compact_device_sparse, device_sparse, round_up
+from ..sparse.bell import (
+    BlockEll,
+    compact_device_sparse,
+    device_sparse,
+    round_up,
+    tiles_on,
+)
 from ..sparse.ell import Ell
 from ..utils.device import resolve_device, to_device
 from ..utils.pool import thread_imap
@@ -43,17 +49,17 @@ class RegionGroup(NamedTuple):
     """
 
     body_idx: torch.Tensor    # (R,2) int64
-    TtP: Ell                 # (R,2,r,kt): X^T systTran_pena, row-compacted
-    Tt: Ell                  # (R,2,r,kt): X^T systTran, row-compacted
+    TtP: Ell | BlockEll      # (R,2,r,kt): X^T systTran_pena, row-compacted
+    Tt: Ell | BlockEll       # (R,2,r,kt): X^T systTran, row-compacted
     t_idx: torch.Tensor       # (R,2,r): scatter rows into stacked (B*n) rhs
-    Bp: Ell                  # (R,2,m,kb): systTran_pena^T X
+    Bp: Ell | BlockEll       # (R,2,m,kb): systTran_pena^T X
     bp_const: torch.Tensor    # (R,2,m)
-    M: Ell                   # (R,2,m,km) inteMass
-    Mp: Ell                  # (R,2,m,km) inteMass_pena
+    M: Ell | BlockEll        # (R,2,m,km) inteMass
+    Mp: Ell | BlockEll       # (R,2,m,km) inteMass_pena
     M_diag: torch.Tensor      # (R,2,m)
     Mp_diag: torch.Tensor
-    L: Ell                   # (R,2,i,kl) inpoLagr
-    Pd: Ell                  # (R,2,i,kp) pemaInpo inpoDisp X
+    L: Ell | BlockEll        # (R,2,i,kl) inpoLagr
+    Pd: Ell | BlockEll       # (R,2,i,kp) pemaInpo inpoDisp X
     pd_const: torch.Tensor    # (R,2,i)
     E: Ell                   # (R,2,i,ke) inteInpo TRANSPOSED (apply via tmv)
     rho_g: torch.Tensor       # (R,i) pemaInpo @ inpoNgap
@@ -69,7 +75,7 @@ class RegionGroup(NamedTuple):
 class AdmmProblem(NamedTuple):
     mg: MgHierarchy            # batched body hierarchies
     cons_forc: torch.Tensor     # (B,n)
-    gram: Ell                  # (B,n,kg) X^T X
+    gram: object               # (B,n,...) X^T X: Dia, Ell or BlockEll
     gram_lin: torch.Tensor      # (B,n)   X^T d0
     gram_const: torch.Tensor    # (B,)    ||d0||^2
     groups: tuple[RegionGroup, ...]   # scalar and/or vector groups
@@ -123,8 +129,17 @@ def build_problem(
     ``DDPCA_SOLVE_DTYPE``, else float64; utils/precision.py).  The V-cycle
     runs in float32 either way; a float32 solve has every floating tensor
     in float32, cast on the host before the upload, so the card never
-    holds the float64 problem."""
+    holds the float64 problem.  Block-ELL tiles
+    (``DDPCA_SPARSE_FORMAT=bell``) are built in the solve dtype straight
+    on ``device``."""
     dev = resolve_device(device)
+    with tiles_on(dev):
+        return _build_problem(systems, regions, dole, musc_sett, meshes,
+                              coarse_solver, structured, dev, dtype)
+
+
+def _build_problem(systems, regions, dole, musc_sett, meshes, coarse_solver,
+                   structured, dev, dtype):
     B = len(systems)
     from ..utils.precision import cast_problem
     from ..utils.precision import solve_dtype as _solve_dtype
@@ -212,7 +227,7 @@ def build_problem(
             gd[b, : G.shape[0]] = G.diagonal()
         gram = _Dia(torch.from_numpy(gd[:, None, :]), (0,), n_pad)
     else:
-        gram = device_sparse(gram_mats, n_pad, n_pad)
+        gram = device_sparse(gram_mats, n_pad, n_pad, dtype=sd)
 
     # Group regions by DOF mode, then split each mode into SIZE BUCKETS:
     # every group is padded to its largest member, so one group spanning a
@@ -262,7 +277,8 @@ def build_problem(
         fric = np.array([r.region.fric for r in regs])
 
         def stacked(mats, n_rows, n_cols):
-            return device_sparse(mats, n_rows, n_cols, batch_shape=(R, 2))
+            return device_sparse(mats, n_rows, n_cols, dtype=sd,
+                                 batch_shape=(R, 2))
 
         sides2 = [(i, s) for i in range(R) for s in (0, 1)]
 
@@ -281,7 +297,7 @@ def build_problem(
         ]
         (TtP, Tt), t_idx = compact_device_sparse(
             [[comp[k][0] for k in sides2], [comp[k][1] for k in sides2]],
-            m_pad, (R, 2), row_offsets=t_offsets,
+            m_pad, (R, 2), row_offsets=t_offsets, dtype=sd,
         )
         Bp = stacked([comp[k][2] for k in sides2], m_pad, n_pad)
         Pd = stacked([comp[k][4] for k in sides2], i_pad, n_pad)
@@ -293,10 +309,11 @@ def build_problem(
         # E (inteInpo) is stored TRANSPOSED: a contact-zone interface node
         # can touch thousands of integral points (ELL k explodes to the max
         # over all regions), but every integral point touches exactly 4
-        # nodes, so E^T has bounded row degree; applied via Ell.tmv scatter.
+        # nodes, so E^T has bounded row degree; applied via Ell.tmv scatter
+        # (ELL in either format: Block-ELL has no tmv).
         E = device_sparse(
             [regs[i].sides[s].inte_inpo.T.tocsr() for i, s in sides2],
-            i_pad, m_pad, batch_shape=(R, 2),
+            i_pad, m_pad, dtype=sd, batch_shape=(R, 2), force_ell=True,
         )
 
         bp_const = np.zeros((R, 2, m_pad))

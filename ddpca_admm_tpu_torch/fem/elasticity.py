@@ -5,13 +5,17 @@ stiffness with engineering-strain B matrices), :1041-1082 (GET_VOLUME),
 :1316-1433 (per-element L2 stress projection).  Defaults E=210 GPa, nu=0.3
 (MULTIGRID.h:99-100).
 
-The element kernels are NumPy batched versions for the host
-setup/assembly path.
+The element kernels exist twice, as in the JAX package:
+  * NumPy batched versions for the host setup/assembly path;
+  * ``element_stiffness_torch``, batched einsums over the elements on a
+    torch device (the JAX package's ``element_stiffness_jax``), for
+    device-side assembly.  The host build does not call it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils.quadrature import HEX_QUAD
 
@@ -80,6 +84,57 @@ def element_stiffness(exyz: np.ndarray, D: np.ndarray) -> np.ndarray:
         BtDB = np.matmul(B.transpose(0, 2, 1), DB)  # (E,24,24)
         K += np.multiply(BtDB, (w * detJ)[:, None, None], out=BtDB)
     return K
+
+
+def _inv3x3(J: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form 3x3 inverse and determinant (the JAX package's: its
+    device path has no LU)."""
+    a, b, c = J[..., 0, 0], J[..., 0, 1], J[..., 0, 2]
+    d, e, f = J[..., 1, 0], J[..., 1, 1], J[..., 1, 2]
+    g, h, i = J[..., 2, 0], J[..., 2, 1], J[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    Dm = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * Dm + c * G
+    adj = torch.stack([torch.stack([A, B, C], dim=-1),
+                       torch.stack([Dm, E, F], dim=-1),
+                       torch.stack([G, H, I], dim=-1)], dim=-2)
+    return adj / det[..., None, None], det
+
+
+def element_stiffness_torch(exyz, D, device="cuda") -> torch.Tensor:
+    """Device hex8 stiffness (E,8,3) -> (E,24,24) in float64: the JAX
+    package's ``element_stiffness_jax``, batched einsums over elements and
+    Gauss points on ``device`` (default the card; raises without one unless
+    the caller asks for the CPU).  Arrays or tensors in, a tensor on
+    ``device`` out."""
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    exyz = torch.as_tensor(exyz, dtype=torch.float64, device=dev)
+    D = torch.as_tensor(D, dtype=torch.float64, device=dev)
+    dN = torch.as_tensor(HEX_QUAD.shape_grad, dtype=torch.float64,
+                         device=dev)
+    w = torch.as_tensor(HEX_QUAD.weights, dtype=torch.float64, device=dev)
+    J = torch.einsum("gdi,eic->egdc", dN, exyz)
+    Jinv, detJ = _inv3x3(J)
+    dndx = torch.einsum("egdc,gci->egdi", Jinv, dN)
+
+    gx, gy, gz = dndx[..., 0, :], dndx[..., 1, :], dndx[..., 2, :]
+    zeros = torch.zeros_like(gx)
+    # rows of B grouped per node a: (E,27,6,8) per dof component
+    bx = torch.stack([gx, zeros, zeros, gy, zeros, gz], dim=-2)
+    by = torch.stack([zeros, gy, zeros, gx, gz, zeros], dim=-2)
+    bz = torch.stack([zeros, zeros, gz, zeros, gy, gx], dim=-2)
+    B = torch.stack([bx, by, bz], dim=-1).reshape(*gx.shape[:-1], 6, 24)
+    DB = torch.einsum("st,egtq->egsq", D, B)
+    return torch.einsum("egsp,egsq,eg,g->epq", B, DB, detJ, w)
 
 
 def element_volumes(exyz: np.ndarray) -> np.ndarray:

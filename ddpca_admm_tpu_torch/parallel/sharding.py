@@ -53,6 +53,8 @@ from ..solvers.mg import (
     StructuredProl,
     StructuredRest,
 )
+from ..sparse.bell import RB as BELL_RB
+from ..sparse.bell import BlockEll
 from ..sparse.dia import Dia, PlaneDia
 from ..sparse.ell import Ell
 from ..utils.constants import ADMM_MAX_ITER
@@ -64,8 +66,8 @@ from ..utils.device import resolve_device, to_device
 _PROBLEM_DOMAIN_FIELDS = frozenset(
     {"cons_forc", "gram", "gram_lin", "gram_const", "u_mask"}
 )
-# AdmmProblem fields replicated on every rank (each accu Ell of ``coarse``
-# keeps only the rank's rows).
+# AdmmProblem fields replicated on every rank (each materialized accu of
+# ``coarse`` keeps only the rank's rows).
 _PROBLEM_REPLICATED_FIELDS = frozenset({"groups", "coarse"})
 # AdmmState: only u is body-batched; z/lambda/gamma lead with R (regions),
 # monitors and scalars are global.
@@ -186,7 +188,7 @@ def _rows(t: torch.Tensor, lo: int, hi: int, n: int) -> torch.Tensor:
 def _slice_op(op, lo: int, hi: int, n: int):
     """Bodies [lo, hi) of a body-batched operator over n bodies.
 
-    * Ell, Dia, tensors: slice the leading body axis.
+    * Ell, BlockEll, Dia, tensors: slice the leading body axis.
     * PlaneDia: keep the shared class table ``vals`` whole and slice ``kz``;
       the operator is built again, since its constructor makes K1's plan
       from ``kz``.
@@ -225,6 +227,9 @@ def _slice_op(op, lo: int, hi: int, n: int):
     if isinstance(op, Ell):
         return Ell(_rows(op.vals, lo, hi, n), _rows(op.cols, lo, hi, n),
                    op.n_cols)
+    if isinstance(op, BlockEll):
+        return BlockEll(_rows(op.tiles, lo, hi, n),
+                        _rows(op.cblk, lo, hi, n), op.n_cols)
     if isinstance(op, torch.Tensor):
         return _rows(op, lo, hi, n)
     raise TypeError(f"no body-axis placement for {type(op).__name__}")
@@ -272,6 +277,11 @@ def _slice_coarse(co, lo: int, hi: int, n_pad: int, n: int,
             tuple(_slice_op(op, lo, hi, n) for op in accu.chain))
         return co._replace(tranD=tranD, accu=accu)
     a = co.accu
+    if isinstance(a, BlockEll):
+        # row blocks of 8: n_pad is a multiple of 128
+        r0, r1 = lo * n_pad // BELL_RB, hi * n_pad // BELL_RB
+        return co._replace(accu=BlockEll(a.tiles[r0:r1].clone(),
+                                         a.cblk[r0:r1].clone(), a.n_cols))
     return co._replace(accu=Ell(a.vals[lo * n_pad:hi * n_pad].clone(),
                                 a.cols[lo * n_pad:hi * n_pad].clone(),
                                 a.n_cols))

@@ -217,8 +217,9 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def _bell_fits(mats, n_rows, n_cols) -> bool:
-    # the JAX package's Block-ELL byte budget: where it fits, that package
-    # builds its generic sparse format (ELL on the CPU) instead of Dia
+    # the JAX package's Block-ELL byte budget: where it fits, the generic
+    # sparse format (device_sparse: Block-ELL under DDPCA_SPARSE_FORMAT=bell,
+    # else ELL) instead of Dia
     S = bell._max_slots(mats, round_up(n_cols, bell.CB))
     entries = len(mats) * (round_up(n_rows, bell.RB) // bell.RB) * S \
         * bell.RB * bell.CB
@@ -228,8 +229,9 @@ def _bell_fits(mats, n_rows, n_cols) -> bool:
 def _dia_auto(mats, shape, n_rows, dt, pad_identity=True, classes=None):
     """The JAX package's structured format policy (mg.py:329-347): PlaneDia
     when the plane dedup pays (>= 4x) or the un-deduplicated bytes pass
-    DIA_LATENCY_BYTES, plain Dia for small weakly-compressing groups, ELL
-    where no plane table fits and the Block-ELL budget does.  ``classes``:
+    DIA_LATENCY_BYTES, plain Dia for small weakly-compressing groups,
+    ``device_sparse``'s format (Block-ELL or ELL, sparse/bell.py) where no
+    plane table fits and the Block-ELL budget does.  ``classes``:
     the matrices' ``plane_classes``, where the caller has them."""
     pd = plane_dia_from_csr_list(mats, shape, n_rows, dt,
                                  pad_identity=pad_identity, classes=classes)

@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source has a plain C interface.  ``nvcc`` compiles them
-into one shared library for ``sm_90a`` at first use, and ``ctypes`` loads
-it; no PyTorch headers are compiled, so the build takes seconds.  The
-library goes into ``ddpca_admm_tpu_torch/_build/<hash>/``, keyed by a hash
-of the sources and flags, so a changed source rebuilds.  The build writes
-to a temporary name and renames it into place, so it takes no lock.  A
-failed build raises with nvcc's output: there is no fallback.
+Every ``csrc/*.cu`` source has a plain C interface.  At first use ``nvcc``
+compiles each source into a shared library of its own for ``sm_90a``, all
+of them at once (one process per source, started together), and
+``ctypes`` loads them; no PyTorch headers are compiled, so the build takes
+seconds.  The libraries go into ``ddpca_admm_tpu_torch/_build/<hash>/``,
+keyed by a hash of the sources and flags, so a changed source rebuilds.
+Each build writes to a temporary name and renames it into place, so it
+takes no lock.  A failed build raises with nvcc's output: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-LIB_NAME = "libddpca_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,32 +31,43 @@ NVCC_FLAGS = (
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
-# name -> argtypes of every C entry point the library exports
+_ll = ctypes.c_longlong
 # plane_dia_mv_*: vals, pairs, items, groups, x, y, B, C, nz, P, D, G,
 # n_items, n_rows, tail_identity, window, cap, stream
-_PLANE_DIA = [_vp] * 6 + [_i] * 7 + [ctypes.c_longlong] + [_i] * 3 + [_vp]
+_PLANE_DIA = [_vp] * 6 + [_i] * 7 + [_ll] + [_i] * 3 + [_vp]
+# block_ell_mv_*: tiles, cblk, x, y, F, n_rb, S, n_cb, tile, cblk and x
+# batch strides, stream
+_BLOCK_ELL = [_vp] * 4 + [_i] * 4 + [_ll] * 3 + [_vp]
+# name -> argtypes of every C entry point the libraries export
 SIGNATURES = {
     "plane_dia_mv_f32": _PLANE_DIA,
     "plane_dia_mv_f64": _PLANE_DIA,
+    "block_ell_mv_f32": _BLOCK_ELL,
+    "block_ell_mv_f64": _BLOCK_ELL,
 }
 
 
 class KernelLibrary:
-    """The loaded library, with the build's seconds and nvcc's log."""
+    """The loaded libraries, one per source, with the build's wall seconds
+    and nvcc's log; every entry point of SIGNATURES is an attribute."""
 
-    def __init__(self, path: Path, build_s: float, log: str):
-        self.path = path
+    def __init__(self, paths: list[Path], build_s: float, log: str):
+        self.paths = paths
         self.build_s = build_s
         self.log = log
-        self.cdll = ctypes.CDLL(str(path))
+        self.cdlls = [ctypes.CDLL(str(p)) for p in paths]
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(self.cdll, name)
+            found = [c for c in self.cdlls if hasattr(c, name)]
+            if len(found) != 1:
+                raise RuntimeError(f"{name}: exported by {len(found)} of the "
+                                   f"kernel libraries, not one")
+            fn = getattr(found[0], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             setattr(self, name, fn)
 
 
-# the library this process loaded (the hash is taken once per process: the
+# the libraries this process loaded (the hash is taken once per process: the
 # wrappers call load() on every launch)
 _LOADED: list[KernelLibrary] = []
 
@@ -88,28 +100,39 @@ def build_key() -> str:
 
 
 def load() -> KernelLibrary:
-    """Build the library if this source hash has none yet, then load it."""
+    """Build the libraries if this source hash has none yet, then load
+    them."""
     if _LOADED:
         return _LOADED[0]
-    key = build_key()
-    out_dir = BUILD_DIR / key
-    lib_path = out_dir / LIB_NAME
+    out_dir = BUILD_DIR / build_key()
+    libs = [out_dir / f"lib{src.stem}.so" for src in _sources()]
     build_s, log = 0.0, "(cached build)"
-    if not lib_path.exists():
+    todo = [(src, lib) for src, lib in zip(_sources(), libs)
+            if not lib.exists()]
+    if todo:
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        runs = []
+        for src, lib in todo:
+            tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            runs.append((cmd, tmp, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, tmp, lib, proc in runs:
+            out = proc.communicate()[0]
+            logs.append(f"{lib.name}:\n{out}")
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed (exit {proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, lib)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, lib_path)
-    lib = KernelLibrary(lib_path, build_s, log)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    lib = KernelLibrary(libs, build_s, log)
     _LOADED.append(lib)
     return lib

@@ -6,8 +6,10 @@ Coulomb friction and with coarse correction variants A and B solved on the
 card against the CPU, the coarse correction applied through the
 hierarchy (ComposedTranD / ComposedAccu) on the card against the CPU,
 and BiCGSTAB, GMRES and the dual-mortar LAGRANGE solve on the card
-against the CPU, and the body axis split over two
-ranks sharing the card against one card.
+against the CPU, the body axis split over two
+ranks sharing the card against one card, and the CUDA kernel K2 (the
+Block-ELL SpMV) against its plain version, with the small BLOCK under
+``DDPCA_SPARSE_FORMAT=bell`` on the card against the CPU.
 Each test decides inside itself whether a card is present and skips
 without one.  This file imports no JAX (the card's machine has none):
 
@@ -497,3 +499,114 @@ def test_two_ranks_on_the_card_match_one_card(case):
     assert all(r["device"].startswith("cuda") for r in run.ranks)
     if case != "chain8":
         assert isinstance(prob.mg.levels[-1].A, BatchBlocks)
+
+
+# ------------------------------------------------- K2, the Block-ELL SpMV
+
+def _block_ell(rng, dtype, batch, n, m, density):
+    """A Block-ELL operator of random sparse matrices on the card."""
+    import scipy.sparse as sp
+
+    from ddpca_admm_tpu_torch.sparse.bell import bell_from_csr_list
+
+    count = int(np.prod(batch)) if batch else 1
+    mats = [sp.random(n, m, density=density, format="csr",
+                      random_state=np.random.RandomState(rng.integers(1e9)))
+            for _ in range(count)]
+    be = bell_from_csr_list(mats, dtype=dtype,
+                            batch_shape=batch if batch else None)
+    return be._replace(tiles=be.tiles.cuda(), cblk=be.cblk.cuda())
+
+
+# (matrix batch, x batch, rows, cols, density): a whole batch on both sides,
+# x broadcast over the matrix's batch, the matrix broadcast over x's, one
+# matrix, and the glob_leve=2 BLOCK's smallest operator shape
+K2_CASES = [
+    ((3, 2), (3, 2), 300, 700, 0.02),
+    ((3, 2), (), 300, 700, 0.02),
+    ((), (3, 2), 300, 700, 0.02),
+    ((), (), 1000, 1000, 0.005),
+    ((4,), (4,), 632, 640, 0.011),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", K2_CASES, ids=[str(c[:2]) for c in K2_CASES])
+def test_k2_matches_plain_on_card(case, dtype, rtol):
+    """K2 against ``block_ell_mv_plain`` on the card, batch axes broadcast
+    either way, in one launch per product."""
+    _need_card()
+    from ddpca_admm_tpu_torch.sparse import block_ell_kernel as K2
+
+    mb, xb, n, m, density = case
+    rng = np.random.default_rng(0)
+    be = _block_ell(rng, dtype, mb, n, m, density)
+    x = torch.from_numpy(rng.standard_normal(xb + (be.n_cols,))).to(
+        "cuda", dtype)
+    before = K2.LAUNCHES
+    y = be.mv(x)
+    assert K2.LAUNCHES == before + 1
+    y_plain = K2.block_ell_mv_plain(be, x)
+    torch.cuda.synchronize()
+    assert y.shape == y_plain.shape == torch.broadcast_shapes(mb, xb) + (
+        be.n_rows,)
+    scale = float(y_plain.abs().max())
+    assert float((y - y_plain).abs().max()) <= rtol * scale
+
+
+def test_k2_refuses_other_dtype_on_card():
+    """K2's wrapper raises, launching nothing, on an x whose dtype is not
+    the tiles', and on tiles on another device than x."""
+    _need_card()
+    from ddpca_admm_tpu_torch.sparse import block_ell_kernel as K2
+
+    rng = np.random.default_rng(1)
+    for dtype, other in ((torch.float64, torch.float32),
+                         (torch.float32, torch.float64)):
+        be = _block_ell(rng, dtype, (2,), 64, 256, 0.05)
+        x = torch.ones((2, be.n_cols), dtype=other, device="cuda")
+        before = K2.LAUNCHES
+        with pytest.raises(TypeError):
+            be.mv(x)
+        with pytest.raises(ValueError):
+            be._replace(tiles=be.tiles.cpu(), cblk=be.cblk.cpu()).mv(
+                x.to(dtype))
+        assert K2.LAUNCHES == before
+
+
+def test_small_block_bell_card_matches_cpu(monkeypatch):
+    """The small BLOCK under DDPCA_SPARSE_FORMAT=bell on the card (K2
+    carries every Block-ELL product) against the CPU: the same ``it``; u,
+    z and lambda within 1e-8 of their largest entries."""
+    _need_card()
+    from ddpca_admm_tpu_torch.admm.loop import contact_analysis
+    from ddpca_admm_tpu_torch.admm.problem import build_problem
+    from ddpca_admm_tpu_torch.models.block import (
+        BlockConfig,
+        build_block_model,
+    )
+    from ddpca_admm_tpu_torch.sparse import block_ell_kernel as K2
+
+    monkeypatch.setenv("DDPCA_SPARSE_FORMAT", "bell")
+    model = build_block_model(
+        BlockConfig(divi=(2, 2, 2), glob_leve=1, doma_numb=(1, 1, 1)))
+    states = {}
+    for dev in ("cpu", "cuda"):
+        prob, meta = build_problem(model.systems, model.regions,
+                                   dole=[1] * len(model.systems),
+                                   musc_sett=2, device=dev)
+        assert type(prob.groups[0].M).__name__ == "BlockEll"
+        before = K2.LAUNCHES
+        states[dev] = contact_analysis(prob, tuple(meta.group_modes),
+                                       max_iter=800, device=dev)
+        launched = K2.LAUNCHES - before
+    assert launched > 0
+    cpu, gpu = states["cpu"], states["cuda"]
+    assert cpu.converged and gpu.converged and cpu.it == gpu.it
+    pairs = [(cpu.u, gpu.u)]
+    for ga, gb in zip(cpu.groups, gpu.groups):
+        pairs += [(ga.z, gb.z), (ga.lam, gb.lam)]
+    for a, b in pairs:
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-8 * scale

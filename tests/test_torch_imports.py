@@ -97,6 +97,8 @@ def test_port_runs_without_jax():
     expected = {
         "ddpca_admm_tpu_torch.admm.convert", "ddpca_admm_tpu_torch.admm.loop",
         "ddpca_admm_tpu_torch.sparse.plane_dia_kernel",
+        "ddpca_admm_tpu_torch.sparse.block_ell_kernel",
+        "ddpca_admm_tpu_torch.sparse.bell",
         "ddpca_admm_tpu_torch.utils.cuda_lib",
         "ddpca_admm_tpu_torch.models.block",
         "ddpca_admm_tpu_torch.cli", "ddpca_admm_tpu_torch.utils.io",
